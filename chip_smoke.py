@@ -7,24 +7,39 @@ Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (nvcc). It
 
   1. prints the card and builds the port's kernels from ``pairing_tpu_torch/
-     csrc`` (build seconds, ptxas registers and spills);
-  2. checks each of the eleven kernels of the main path (A dense Fq12
-     product, B cyclotomic square, C Miller f-accumulation, D streamed
-     x-power ladder, E conjugate/Frobenius, F Fq power, G Fq12 inverse,
-     H point trajectory, I/J the two batch-inversion passes, K lines)
-     against its plain PyTorch version on seeded operands made on the card,
-     values below 2p with settled limbs, at the main path's shapes:
-     canonical values must be equal (tolerance zero: this is exact integer
-     arithmetic) and every output limb in [0, 2^13 + 1], every value below
-     2p; prints both times;
+     csrc`` (one nvcc per source, in parallel; build seconds, ptxas
+     registers and spills);
+  2. checks every kernel and kernel mode against its plain PyTorch version
+     on seeded operands made on the card, values below 2p with settled limbs:
+     the eleven of the main path (A dense Fq12 product, B cyclotomic square,
+     C Miller f-accumulation, D streamed x-power ladder, E conjugate/
+     Frobenius, F Fq power, G Fq12 inverse, H point trajectory, I/J the two
+     batch-inversion passes, K lines) at its shapes, then kernel C with K = 4
+     pairs per product and with per-step collection, K12 the witness bit
+     ladder and K13 the affine export at the witness path's shapes. Canonical
+     values must be equal (tolerance zero: exact integer arithmetic) and
+     every output limb in [0, 2^13 + 1], every value below 2p; prints both
+     times and the kernel's bound on this card;
   3. runs the main path, ``pairing_tpu_torch.pairing`` at batch 16384 with
-     256 distinct seeded pairs tiled, with every launch count reset just
-     before: all 256 distinct lanes must equal the port's pure-integer
-     oracle, every tiled lane must equal its original, and each of the
-     eleven kernels must have launched during that call; prints
+     256 distinct seeded pairs tiled: all 256 distinct lanes must equal the
+     port's pure-integer oracle, every tiled lane its original, and each of
+     the eleven kernels must have launched; prints pairings/s;
+  4. runs ``multi_pairing`` at K = 4 over 16384 products (65,536 pairs from
+     the same 256 distinct pairs): the first 64 products must equal the
+     oracle's, every tiled product its original; prints products/s and
      pairings/s;
-  4. prints one JSON line of per-kernel results, the card's name and power
+  5. runs ``pairing_witness`` over the main path's 16384 lanes: its output
+     must equal ``pairing``'s lane for lane; prints witnesses/s for trace
+     generation on the device (no serialization) and the peak device
+     memory; writes the first 16 lanes with ``save_pairing_witness`` and
+     both of the port's checkers must accept them;
+  6. runs ``multi_pairing_witness`` at K = 4 on 64 products, writes all of
+     it, and both checkers must accept it;
+  7. prints one JSON line of per-kernel results, the card's name and power
      limit, and last ``{"ok": true, "device": {...}}``.
+
+Launch counts are set to 0 just before each of paths 3-6 and read just after;
+every kernel the path runs must have launched in it.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also fails at once without a CUDA device. It imports nothing of JAX.
@@ -35,21 +50,33 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 BATCH = 16384
 UNIQUE = 256
+K_PAIRS = 4
+WITNESS_CUT = 16
+MULTI_WITNESS_PRODUCTS = 64
 SEED = 20261016
 DEVICE = "cuda"
 KERNEL_REPS = 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+IMADS_PER_SM_CLOCK = 64  # assumed: CUDA C++ Programming Guide throughput table, cc 9.0
+SMS = 132
 
 KERNEL_SOURCES = {
     "fq12_mul": ("pairing_tpu_torch/csrc/fq12_mul.cu", "pairing_tpu/ops/fq12_kernels.py:275"),
     "fq12_cyc_sq": ("pairing_tpu_torch/csrc/cyc_sq.cu", "pairing_tpu/ops/klayout.py:120"),
     "miller_f": ("pairing_tpu_torch/csrc/miller_f.cu", "pairing_tpu/ops/fused_kernels.py:260"),
+    "miller_f_multi": ("pairing_tpu_torch/csrc/miller_f.cu",
+                       "pairing_tpu/ops/fused_kernels.py:260"),
+    "miller_f_collect": ("pairing_tpu_torch/csrc/miller_f.cu",
+                         "pairing_tpu/ops/fused_kernels.py:260"),
     "pow_ladder_stream": ("pairing_tpu_torch/csrc/pow_ladder.cu",
                           "pairing_tpu/ops/fused_kernels.py:606"),
     "fq12_slotwise": ("pairing_tpu_torch/csrc/slotwise.cu", "pairing_tpu/ops/klayout.py:200"),
@@ -60,7 +87,55 @@ KERNEL_SOURCES = {
     "prefix_products": ("pairing_tpu_torch/csrc/norm.cu", "pairing_tpu/ops/norm_kernels.py:116"),
     "running_inverse": ("pairing_tpu_torch/csrc/norm.cu", "pairing_tpu/ops/norm_kernels.py:156"),
     "lines": ("pairing_tpu_torch/csrc/lines.cu", "pairing_tpu/ops/line_kernels.py:209"),
+    "exp_bits": ("pairing_tpu_torch/csrc/exp_bits.cu", "pairing_tpu/ops/fused_kernels.py:702"),
+    "affine_export": ("pairing_tpu_torch/csrc/affine_export.cu",
+                      "pairing_tpu/ops/fq2_vm.py:334"),
 }
+
+#: The kernels each path runs; each must launch in its path's run.
+PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "fq12_slotwise",
+                   "fp_pow_bits", "fq12_inv", "trajectory", "prefix_products",
+                   "running_inverse", "lines")
+MULTI_KERNELS = tuple("miller_f_multi" if n == "miller_f" else n for n in PAIRING_KERNELS)
+WITNESS_KERNELS = tuple(n for n in PAIRING_KERNELS if n not in ("miller_f", "pow_ladder_stream")
+                        ) + ("miller_f_collect", "exp_bits", "affine_export")
+
+# ---------------------------------------------------------------------------
+# Operation counts: the least number of 32-bit integer multiply-adds (IMADs)
+# per lane that each function needs, whatever the kernel issues. With 13-bit
+# limbs one 32-bit IMAD holds a limb product: a column of 21 products below
+# 8193^2 plus the 21 m * p terms of the word-by-word reduction stays below
+# 2^32. An Fq square needs 231 distinct limb products. The tower takes
+# Karatsuba and complex squaring: an Fq2 product is 3 Fq products, an Fq2
+# square 2, an Fq12 product 54, an Fq12 square 36, an Fq12 product by a line
+# (three Fq2 slots) 13 Fq2 products, a cyclotomic square 9 Fq2 squares.
+# With lazy reduction each output Fq coefficient is reduced once. Additions,
+# carries, selects and small-constant multiplies are not counted, so the
+# operation bound below is a lower bound.
+# ---------------------------------------------------------------------------
+LIMB_PRODUCTS = 21 * 21  # one Fq product, unreduced
+SQ_PRODUCTS = 21 * 22 // 2  # one Fq square, unreduced
+MONT = 21 * (1 + 21)  # word-by-word reduction: m, then m * p, per word
+
+
+def tower(products: int, reductions: int) -> int:
+    return products * LIMB_PRODUCTS + reductions * MONT
+
+
+FP_MUL = tower(1, 1)
+FP_SQ = SQ_PRODUCTS + MONT
+FP2_MUL = tower(3, 2)
+FP2_SQ = tower(2, 2)
+FQ12_DENSE = tower(54, 12)
+FQ12_SQ = tower(36, 12)
+FQ12_SPARSE = tower(39, 12)
+CYC_SQ = tower(18, 12)
+
+
+def pow_imads(e: int) -> int:
+    """fp_pow_bits: a square per bit after the leading one, a product per set bit."""
+    bits = bin(e)[3:]
+    return len(bits) * FP_SQ + bits.count("1") * FP_MUL
 
 
 def check(ok: bool, msg: str) -> None:
@@ -68,9 +143,9 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def card_line() -> str:
+def query_gpu(fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
@@ -88,12 +163,33 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def compare_kernel(name, kernel_fn, plain_fn, results, calls: int = 1) -> None:
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Bounds:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the multiply-adds over the peak integer rate."""
+
+    def __init__(self):
+        mhz = float(query_gpu("clocks.max.sm").split()[0])
+        self.imads_per_s = SMS * IMADS_PER_SM_CLOCK * mhz * 1e6
+        print(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {self.imads_per_s / 1e12:.2f} T "
+              f"32-bit IMAD/s ({SMS} SMs x {IMADS_PER_SM_CLOCK}/clock x {mhz:.0f} MHz, the "
+              f"rate assumed from the CUDA C++ Programming Guide, cc 9.0)", flush=True)
+
+    def __call__(self, imads: float, n_bytes: float):
+        t_ops, t_mem = imads / self.imads_per_s, n_bytes / HBM_BYTES_PER_S
+        return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def compare_kernel(name, kernel_fn, plain_fn, results, bound, imads, in_bytes, calls: int = 1):
     """Kernel vs plain version on the same inputs: exact, envelope, timed.
 
     Each fn returns one tensor or a tuple of them and makes ``calls``
     launches of the kernel (or calls of the plain version); times are per
-    call."""
+    call. ``imads`` and ``in_bytes`` are the multiply-adds and the input
+    bytes the ``calls`` launches need; the outputs' bytes are added."""
     from pairing_tpu_torch.ops import dispatch
     from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical, kf12_in_envelope
 
@@ -109,19 +205,25 @@ def compare_kernel(name, kernel_fn, plain_fn, results, calls: int = 1) -> None:
         check(kf12_in_envelope(g), f"{name}: output outside [0, 2^13 + 1] limbs / < 2p")
         err = max(err, (kf12_canonical(g).long() - kf12_canonical(w).long()).abs().max().item())
     check(err == 0, f"{name}: kernel differs from its plain version (max |diff| {err})")
+    del want
     ms = timed_ms(kernel_fn, KERNEL_REPS) / calls
     plain_ms = timed_ms(plain_fn, 1) / calls
+    bound_ms, bound_by = bound(imads / calls, (in_bytes + nbytes(got)) / calls)
     src, replaces = KERNEL_SOURCES[name]
     results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-    print(f"{name}: equal to plain, envelope ok; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"per call (lanes {got[0].shape[-1]})", flush=True)
+                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "launches_by_path": {}}
+    print(f"{name}: equal to plain, envelope ok; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by}) per call (lanes {got[0].shape[-1]})",
+          flush=True)
 
 
-def kernel_phases(results) -> None:
+def kernel_phases(results, bound) -> None:
     from pairing_tpu_torch.ops import curve_kernels as CK
     from pairing_tpu_torch.ops import fp_kernels as FPK
     from pairing_tpu_torch.ops import fq12_kernels as FK
+    from pairing_tpu_torch.ops import fq2_vm as VM
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.ops import klayout as KL
     from pairing_tpu_torch.ops import line_kernels as LK
@@ -132,58 +234,103 @@ def kernel_phases(results) -> None:
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
+    B = BATCH
 
-    def rand(*lead):
-        return FK.random_kf12(lead, BATCH, gen)
+    def rand(*lead, lanes=B):
+        return FK.random_kf12(lead, lanes, gen)
 
     a, b = rand(12), rand(12)
     compare_kernel("fq12_mul", lambda: FK.fq12_mul(a, b), lambda: FK.fq12_mul_plain(a, b),
-                   results)
+                   results, bound, B * FQ12_DENSE, nbytes((a, b)))
 
-    m = FE.easy_part_k(a)  # cyclotomic-subgroup inputs for B and D
-    compare_kernel("fq12_cyc_sq", lambda: KL.kcyc_sq(m), lambda: KL.kcyc_sq_plain(m), results)
+    m = FE.easy_part_k(a)  # cyclotomic-subgroup inputs for B, D and K12
+    compare_kernel("fq12_cyc_sq", lambda: KL.kcyc_sq(m), lambda: KL.kcyc_sq_plain(m),
+                   results, bound, B * CYC_SQ, nbytes((m,)))
 
-    tg, ch, ep = rand(ML.N_STEPS, 6), rand(ML.N_ADDS, 6), rand(2, 6)
     sched = FU.miller_schedule(ML.MILLER_FLAGS, ML.CHORD_ROWS)
-    compare_kernel("miller_f",
-                   lambda: FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS),
-                   lambda: FU.miller_f_plain(tg, ch, ep, sched), results)
+    n_loop, n_lines = ML.N_STEPS, ML.N_STEPS + ML.N_ADDS + 2
+
+    def miller_case(name, n_pairs, collect):
+        tg, ch, ep = (rand(n, 6, lanes=n_pairs * B) for n in (ML.N_STEPS, ML.N_ADDS, 2))
+        imads = B * (n_loop * FQ12_SQ + n_pairs * n_lines * FQ12_SPARSE)
+        compare_kernel(
+            name,
+            lambda: FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS, n_pairs, collect),
+            lambda: FU.miller_f_plain(tg, ch, ep, sched, n_pairs, collect),
+            results, bound, imads, nbytes((tg, ch, ep)))
+
+    miller_case("miller_f", 1, False)
 
     stream, rows = FU.pow_x_table(m)
     digits = FU.BN_X_W4_DIGITS
     compare_kernel("pow_ladder_stream",
                    lambda: FU.pow_ladder_stream(stream, digits, rows),
-                   lambda: FU.pow_ladder_stream_plain(stream, digits, rows), results)
+                   lambda: FU.pow_ladder_stream_plain(stream, digits, rows), results, bound,
+                   B * ((len(digits) - 1) * CYC_SQ
+                        + int(np.count_nonzero(digits[1:])) * FQ12_DENSE), nbytes((stream,)))
 
     powers = (None, 1, 2, 3)  # the conjugate and the three Frobenius maps
+    n_const = sum(int(np.count_nonzero(KL._slot_prog(pw)[0] & KL.MUL_CONST)) for pw in powers)
     compare_kernel("fq12_slotwise",
                    lambda: tuple(KL.slotwise(a, pw) for pw in powers),
-                   lambda: tuple(KL.slotwise_plain(a, pw) for pw in powers), results,
-                   calls=len(powers))
+                   lambda: tuple(KL.slotwise_plain(a, pw) for pw in powers), results, bound,
+                   B * n_const * FP2_MUL, len(powers) * nbytes((a,)), calls=len(powers))
 
     x = rand()
     compare_kernel("fp_pow_bits", lambda: FPK.fp_pow_bits(x, P - 2),
-                   lambda: FPK.fp_pow_bits_plain(x, P - 2), results)
+                   lambda: FPK.fp_pow_bits_plain(x, P - 2), results, bound,
+                   B * pow_imads(P - 2), nbytes((x,)))
 
-    compare_kernel("fq12_inv", lambda: KL.kinv(a), lambda: KL.kinv_plain(a), results)
+    # two Fq6 squares, the Fq6 inverse, two Fq6 products; the Fq2 norm's two
+    # squares share one reduction, then the Fq inverse and two Fq products
+    inv_imads = (25 * FP2_MUL + 9 * FP2_SQ + 2 * SQ_PRODUCTS + MONT + pow_imads(P - 2)
+                 + 2 * FP_MUL)
+    compare_kernel("fq12_inv", lambda: KL.kinv(a), lambda: KL.kinv_plain(a), results, bound,
+                   B * inv_imads, nbytes((a,)))
 
     q = rand(4)
+    n_adds = sum(1 for d in ML.STEP_DIGITS if d)
+    traj_imads = ML.N_STEPS * (5 * FP2_SQ + 2 * FP2_MUL) + n_adds * (4 * FP2_SQ + 7 * FP2_MUL)
     compare_kernel("trajectory", lambda: CK.trajectory(q, ML.STEP_DIGITS),
-                   lambda: CK.trajectory_plain(q, ML.STEP_DIGITS), results)
+                   lambda: CK.trajectory_plain(q, ML.STEP_DIGITS), results, bound,
+                   B * traj_imads, nbytes((q,)))
 
     z, tinv = rand(2 * ML.N_STEPS + 2, 2), rand(2)
     prefix, _ = NK.prefix_products(z)
     compare_kernel("prefix_products", lambda: NK.prefix_products(z),
-                   lambda: NK.prefix_products_plain(z), results)
+                   lambda: NK.prefix_products_plain(z), results, bound,
+                   B * z.shape[0] * FP2_MUL, nbytes((z,)))
     compare_kernel("running_inverse", lambda: NK.running_inverse(z, prefix, tinv),
-                   lambda: NK.running_inverse_plain(z, prefix, tinv), results)
+                   lambda: NK.running_inverse_plain(z, prefix, tinv), results, bound,
+                   B * 2 * z.shape[0] * FP2_MUL, nbytes((z, prefix, tinv)))
 
     tops, dbls, zinv, pq = rand(ML.N_STEPS, 6), rand(ML.N_STEPS, 6), z, rand(6)
     ch_rows = ML.CHORD_ROWS[:ML.N_STEPS]
     lsched = LK.line_schedule(ML.STEP_DIGITS, ch_rows, ML.N_ADDS)
+    lines_imads = (ML.N_STEPS * (3 * FP2_SQ + 4 * FP2_MUL + 4 * FP_MUL)
+                   + n_adds * (FP2_SQ + 5 * FP2_MUL + 4 * FP_MUL))
     compare_kernel("lines",
                    lambda: LK.lines(tops, dbls, zinv, pq, ML.STEP_DIGITS, ch_rows, ML.N_ADDS),
-                   lambda: LK.lines_plain(tops, dbls, zinv, pq, lsched, ML.N_ADDS), results)
+                   lambda: LK.lines_plain(tops, dbls, zinv, pq, lsched, ML.N_ADDS), results,
+                   bound, B * lines_imads,
+                   # X, Y of every top and of the added post-doubles, their inverses, P and Q
+                   B * 21 * 4 * (4 * (ML.N_STEPS + n_adds) + 2 * (ML.N_STEPS + n_adds) + 6))
+    del tops, dbls, pq, z, prefix, tinv, stream
+
+    # this slice's kernel modes, at the shapes of the K-pair and witness paths
+    miller_case("miller_f_multi", K_PAIRS, False)
+    miller_case("miller_f_collect", 1, True)
+
+    bits = FU.BN_X_BITS_MSB
+    compare_kernel("exp_bits", lambda: FU.exp_bits_ladder(m, bits)[1],  # rows; out is rows[-1]
+                   lambda: FU.exp_bits_ladder_plain(m, bits), results,
+                   bound, B * (len(bits) * CYC_SQ + int(bits.sum()) * FQ12_DENSE), nbytes((m,)))
+
+    n_states = 2 * ML.N_STEPS + 2
+    xy, zi = rand(n_states, 4), rand(n_states, 2)
+    compare_kernel("affine_export", lambda: VM.affine_export(xy, zi),
+                   lambda: VM.affine_export_plain(xy, zi), results, bound,
+                   B * n_states * (FP2_SQ + 3 * FP2_MUL), nbytes((xy, zi)))
 
 
 def seeded_pairs():
@@ -200,47 +347,62 @@ def seeded_pairs():
     return g1s, g2s
 
 
-def main_path(results, card: str) -> None:
+def tiled_points(g1s, g2s, shape):
+    """The distinct pairs repeated over prod(shape) lanes, in row-major order
+    of ``shape``, as (G1, G2) batches of that shape on the card."""
     import pairing_tpu_torch as pt
-    from pairing_tpu_torch.curves.g1 import G1
-    from pairing_tpu_torch.curves.g2 import G2
-    from pairing_tpu_torch.fields.fp import Fp
-    from pairing_tpu_torch.fields.fp2 import Fp2
-    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs, fq12_to_canonical_limbs
-    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    reps = int(np.prod(shape)) // len(g1s)
+    tile = lambda limbs: limbs.repeat(reps, 1).reshape(tuple(shape) + (21,))  # noqa: E731
+    return (map_limbs(pt.g1_from_ints(g1s, DEVICE), tile),
+            map_limbs(pt.g2_from_ints(g2s, DEVICE), tile))
+
+
+def run_path(name, kernels, fn, results):
+    """fn() with every launch count set to 0 just before and read just after;
+    each of ``kernels`` must have launched. Returns (fn's result, seconds)."""
     from pairing_tpu_torch.ops import dispatch
-
-    t0 = time.perf_counter()
-    g1s, g2s = seeded_pairs()
-    reps = BATCH // UNIQUE
-
-    def tile(a: Fp) -> Fp:
-        return Fp(a.limbs.repeat(reps, 1), a.bound, a.limb_bound)
-
-    p1, q1 = pt.g1_from_ints(g1s, DEVICE), pt.g2_from_ints(g2s, DEVICE)
-    p = G1(tile(p1.x), tile(p1.y))
-    q = G2(Fp2(tile(q1.x.c0), tile(q1.x.c1)), Fp2(tile(q1.y.c0), tile(q1.y.c1)))
-    print(f"main path: {UNIQUE} seeded pairs tiled to {BATCH} lanes "
-          f"({time.perf_counter() - t0:.1f} s to make)", flush=True)
 
     dispatch.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = pt.pairing(p, q)
+    out = fn()
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     counts = dispatch.launch_counts()
-    print(f"main path launches: {counts} (first call {first_s:.2f} s)", flush=True)
-    for name in KERNEL_SOURCES:
-        check(counts[name] > 0, f"main path never launched kernel {name}")
-        results[name]["launches"] = counts[name]
+    print(f"{name} launches: { {k: v for k, v in counts.items() if v} } "
+          f"(first call {seconds:.2f} s)", flush=True)
+    for k in kernels:
+        check(counts[k] > 0, f"{name} never launched kernel {k}")
+        results[k]["launches_by_path"][name] = counts[k]
+    return out, seconds
 
-    canon = fq12_to_canonical_limbs(out)  # [BATCH, 12, 21]
-    check(tuple(canon.shape) == (BATCH, 12, 21), f"output shape {tuple(canon.shape)}")
+
+def canonical(out):
+    from pairing_tpu_torch.fields.fp12 import fq12_to_canonical_limbs
+
     for s in out.s:
         for comp in (s.c0, s.c1):
             check(int(comp.limbs.min()) >= 0 and int(comp.limbs.max()) <= 8193,
                   "output limbs outside [0, 2^13 + 1]")
+    return fq12_to_canonical_limbs(out)
+
+
+def main_path(results, card: str, g1s, g2s):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs
+    from pairing_tpu_torch.oracle import native as o
+
+    t0 = time.perf_counter()
+    p, q = tiled_points(g1s, g2s, (BATCH,))
+    reps = BATCH // UNIQUE
+    print(f"main path: {UNIQUE} seeded pairs tiled to {BATCH} lanes "
+          f"({time.perf_counter() - t0:.1f} s to make)", flush=True)
+
+    out, _ = run_path("pairing", PAIRING_KERNELS, lambda: pt.pairing(p, q), results)
+    canon = canonical(out)  # [BATCH, 12, 21]
+    check(tuple(canon.shape) == (BATCH, 12, 21), f"output shape {tuple(canon.shape)}")
     tiled = canon.reshape(reps, UNIQUE, 12, 21)
     check(bool((tiled == tiled[:1]).all()), "a tiled lane differs from its original")
     got = fq12_limbs_to_int_coeffs(canon[:UNIQUE].cpu().numpy())
@@ -273,6 +435,101 @@ def main_path(results, card: str) -> None:
     print(f"main path: miller_loop {t1 - t0:.3f} s, final_exp {t2 - t1:.3f} s per batch; "
           f"pairing {per_batch:.3f} s per batch of {BATCH} = {BATCH / per_batch:.1f} "
           f"pairings/s on {card}", flush=True)
+    return p, q, canon
+
+
+def multi_path(results, card: str, g1s, g2s):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    K, n_prod = K_PAIRS, BATCH
+    per_cycle = UNIQUE // K  # product b takes distinct pairs K*b .. K*b + K-1 (mod 256)
+    # product-major tiling [n_prod, K], then the pairs axis first: [K, n_prod]
+    swap = lambda limbs: limbs.transpose(0, 1).contiguous()  # noqa: E731
+    ps, qs = (map_limbs(pts, swap) for pts in tiled_points(g1s, g2s, (n_prod, K)))
+    print(f"K-pair path: {UNIQUE} seeded pairs tiled to {K} x {n_prod} = {K * n_prod} pairs",
+          flush=True)
+    out, _ = run_path("multi_pairing", MULTI_KERNELS, lambda: pt.multi_pairing(ps, qs), results)
+    canon = canonical(out)
+    check(tuple(canon.shape) == (n_prod, 12, 21), f"output shape {tuple(canon.shape)}")
+    tiled = canon.reshape(n_prod // per_cycle, per_cycle, 12, 21)
+    check(bool((tiled == tiled[:1]).all()), "a tiled product differs from its original")
+    got = fq12_limbs_to_int_coeffs(canon[:per_cycle].cpu().numpy())
+    t0 = time.perf_counter()
+    want = [o.final_exp(o.multi_miller_loop([(g1s[K * b + k], g2s[K * b + k]) for k in range(K)]))
+            for b in range(per_cycle)]
+    bad = [b for b in range(per_cycle) if got[b] != want[b]]
+    check(not bad, f"products {bad[:8]} differ from the oracle")
+    print(f"K-pair path: the first {per_cycle} products equal the oracle, all {n_prod} tiled "
+          f"products equal their originals (oracle {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    runs = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        pt.multi_pairing(ps, qs)
+    torch.cuda.synchronize()
+    per_batch = (time.perf_counter() - t0) / runs
+    print(f"K-pair path: multi_pairing {per_batch:.3f} s per batch of {n_prod} products of "
+          f"{K} = {n_prod / per_batch:.1f} products/s, {K * n_prod / per_batch:.1f} pairings/s "
+          f"on {card}", flush=True)
+    return ps, qs
+
+
+def check_written(path, label):
+    from pairing_tpu_torch.witness import (check_pairing_constraints, load_pairing_witness,
+                                           verify_pairing_witness)
+
+    t0 = time.perf_counter()
+    meta, data = load_pairing_witness(path)
+    check_pairing_constraints(meta, data)
+    t1 = time.perf_counter()
+    verify_pairing_witness(meta, data)
+    print(f"{label}: written (K = {meta['k']}, B = {data['f_steps'].shape[1]}), "
+          f"check_pairing_constraints {t1 - t0:.1f} s and verify_pairing_witness "
+          f"{time.perf_counter() - t1:.1f} s accept it", flush=True)
+
+
+def witness_path(results, card: str, p, q, pairing_canon, tmp: Path):
+    from pairing_tpu_torch import witness as W
+
+    torch.cuda.reset_peak_memory_stats()
+    (out, trace), _ = run_path("pairing_witness", WITNESS_KERNELS,
+                               lambda: W.pairing_witness(p, q), results)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool((canonical(out) == pairing_canon).all()),
+          "pairing_witness output differs from pairing's")
+    print(f"witness path: output equals pairing's on all {BATCH} lanes", flush=True)
+    path = str(tmp / "witness_cut.npz")
+    W.save_pairing_witness(path, p, q, out, trace, lanes=range(WITNESS_CUT))
+    del out, trace
+
+    runs = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        W.pairing_witness(p, q)
+    torch.cuda.synchronize()
+    per_batch = (time.perf_counter() - t0) / runs
+    print(f"witness path: pairing_witness {per_batch:.3f} s per batch of {BATCH} = "
+          f"{BATCH / per_batch:.1f} witnesses/s (trace generation on the device, no "
+          f"serialization); peak device memory {peak / 2**30:.2f} GiB on {card}", flush=True)
+    check_written(path, f"witness path: the first {WITNESS_CUT} lanes")
+
+
+def multi_witness(ps, qs, tmp: Path):
+    from pairing_tpu_torch import witness as W
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    n = MULTI_WITNESS_PRODUCTS
+    first = lambda limbs: limbs[:, :n].contiguous()  # noqa: E731
+    p, q = map_limbs(ps, first), map_limbs(qs, first)
+    out, trace = W.multi_pairing_witness(p, q)
+    path = str(tmp / "multi_witness.npz")
+    W.save_pairing_witness(path, p, q, out, trace)
+    check_written(path, f"multi_pairing_witness at K = {K_PAIRS} on {n} products")
 
 
 def main() -> int:
@@ -280,7 +537,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 1
-    card = card_line()
+    card = query_gpu("name,power.limit")
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     from pairing_tpu_torch.ops import build
@@ -294,9 +551,21 @@ def main() -> int:
             print("ptxas:", line.strip())
 
     results: dict = {}
-    kernel_phases(results)
-    main_path(results, card)
+    kernel_phases(results, Bounds())
+    torch.cuda.empty_cache()
+    g1s, g2s = seeded_pairs()
+    p, q, canon = main_path(results, card, g1s, g2s)
+    ps, qs = multi_path(results, card, g1s, g2s)
+    with tempfile.TemporaryDirectory() as tmp:
+        witness_path(results, card, p, q, canon, Path(tmp))
+        multi_witness(ps, qs, Path(tmp))
 
+    # "launches" is the count in the path each kernel (mode) serves
+    home = {n: "pairing" for n in PAIRING_KERNELS}
+    home.update(miller_f_multi="multi_pairing", miller_f_collect="pairing_witness",
+                exp_bits="pairing_witness", affine_export="pairing_witness")
+    for name, r in results.items():
+        r["launches"] = r["launches_by_path"][home[name]]
     print(json.dumps({"kernels": [results[n] for n in KERNEL_SOURCES]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

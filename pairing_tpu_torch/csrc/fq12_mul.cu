@@ -5,10 +5,12 @@
 // On the TPU it runs on (8, 128) tiles padded to 1024 lanes; here each
 // thread owns one lane and the grid masks the ragged edge itself.
 //
-// Bound on the H100: integer multiply-adds. 144 Fq limb products of 441
-// IMAD.WIDE each plus 12 Montgomery reductions per lane (about 70k IMADs),
-// against 2 x 1008 bytes read and 1008 bytes written per lane: far above
-// the card's op-per-byte line. The operands (3 x 252 words) do not fit the
+// Bound on the H100: integer multiply-adds. The product needs at least 54
+// Fq products (Karatsuba) of 441 32-bit IMADs and 12 reductions of 462,
+// about 29 k per lane (the least count in chip_smoke.py); this kernel issues
+// 144 schoolbook Fq products of 441 IMAD.WIDE each. Against 2 x 1008 bytes
+// read and 1008 bytes written per lane that is above the card's op-per-byte
+// line. The operands (3 x 252 words) do not fit the
 // register file, so they sit in L1-cached local memory; the simple design
 // accepts the spills and launches 128-thread blocks, one lane per thread.
 #include <cuda_runtime.h>

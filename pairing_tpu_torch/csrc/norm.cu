@@ -15,9 +15,11 @@
 // the running product in registers. The one Fermat inversion of the total
 // between the passes is kernel F (fp_pow.cu).
 //
-// Bound on the H100: memory. One (forward) or two (backward) Fq2 products
-// per step against 168 bytes read and 168 written per step and lane; at
-// 130 steps x 16384 lanes each pass moves about 0.7 GB. Neighbouring
+// Bound on the H100: integer multiply-adds, narrowly. One (forward) or two
+// (backward) Fq2 products, at least 2.2 k or 4.5 k 32-bit IMADs, per step
+// against 168 bytes read and 168 written per step and lane (the backward
+// pass also reads the prefix); at 130 steps x 16384 lanes each pass moves
+// about 0.7 GB. Neighbouring
 // threads read neighbouring words of every row.
 #include <cuda_runtime.h>
 

@@ -1,12 +1,16 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-The sources under ``pairing_tpu_torch/csrc/`` compile into one shared
-library with a plain C interface::
+Each source under ``pairing_tpu_torch/csrc/`` compiles to an object file,
+all of them in parallel (one nvcc process per source, started together),
+and the objects link into one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o libpairing_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   # each
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o libpairing_kernels.so *.o
 
-The build runs at first use, into ``build/pairing_tpu_torch/<hash>/`` at
+Every device routine is ``static`` to its translation unit, so no device
+linking is needed. The build runs at first use, into ``build/pairing_tpu_torch/<hash>/`` at
 the root of the checkout (git-ignored), keyed by a hash of the sources and
 flags, so an unchanged tree reuses its library. ptxas's register and spill
 report is kept beside the library in ``ptxas.log``.
@@ -27,10 +31,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pairing_tpu_torch"
 LIB_NAME = "libpairing_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,7 +40,7 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     "pt_fq12_mul": (_P, _P, _P, _I, _P),
     "pt_fq12_cyc_sq": (_P, _P, _I, _P),
-    "pt_miller_f": (_P, _P, _P, _P, _I, _P, _I, _P),
+    "pt_miller_f": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _P),
     "pt_pow_ladder_stream": (_P, _P, _I, _P, _I, _P),
     "pt_fq12_slotwise": (_P, _P, _P, _P, _I, _P),
     "pt_fp_pow_bits": (_P, _P, _I, _P, _I, _P),
@@ -47,6 +49,8 @@ ENTRY_POINTS = {
     "pt_prefix_products": (_P, _I, _P, _P, _I, _P),
     "pt_running_inverse": (_P, _P, _P, _I, _P, _I, _P),
     "pt_lines": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
+    "pt_exp_bits": (_P, _P, _I, _P, _I, _P),
+    "pt_affine_export": (_P, _P, _I, _P, _I, _P),
 }
 
 
@@ -89,17 +93,33 @@ def build() -> BuildInfo:
         log = log_path.read_text() if log_path.is_file() else ""
         return BuildInfo(lib_path, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sources() if s.suffix == ".cu"]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    units = [s for s in sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in units]
+    log_files = [o.with_suffix(".log") for o in objs]
+    procs = []
+    for src, obj, log in zip(units, objs, log_files):
+        with open(log, "w") as fh:  # a file, not a pipe: no process blocks on output
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                          cwd=CSRC, stdout=fh, stderr=subprocess.STDOUT))
+    for p in procs:
+        p.wait()
+    logs = [f.read_text() for f in log_files]
+    failed = [(s.name, p.returncode, log) for s, p, log in zip(units, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True, cwd=CSRC)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    log = proc.stdout + proc.stderr
+    for f in objs + log_files:
+        f.unlink()
+    log = "".join(logs)
     log_path.write_text(log)
     os.replace(tmp, lib_path)
     return BuildInfo(lib_path, seconds, log)

@@ -38,13 +38,18 @@ class Kernel:
         self.launches += 1
 
 
-#: Every kernel of the port, by name; the wrappers own one each.
+#: Every kernel of the port, by name; the wrappers own one each. Kernel C's
+#: modes share one entry point but count apart: ``miller_f`` is one pair per
+#: product without collection, ``miller_f_multi`` several pairs per product,
+#: ``miller_f_collect`` any launch that writes the per-step accumulator.
 KERNELS = {
     name: Kernel(name, entry)
     for name, entry in (
         ("fq12_mul", "pt_fq12_mul"),
         ("fq12_cyc_sq", "pt_fq12_cyc_sq"),
         ("miller_f", "pt_miller_f"),
+        ("miller_f_multi", "pt_miller_f"),
+        ("miller_f_collect", "pt_miller_f"),
         ("pow_ladder_stream", "pt_pow_ladder_stream"),
         ("fq12_slotwise", "pt_fq12_slotwise"),
         ("fp_pow_bits", "pt_fp_pow_bits"),
@@ -53,6 +58,8 @@ KERNELS = {
         ("prefix_products", "pt_prefix_products"),
         ("running_inverse", "pt_running_inverse"),
         ("lines", "pt_lines"),
+        ("exp_bits", "pt_exp_bits"),
+        ("affine_export", "pt_affine_export"),
     )
 }
 

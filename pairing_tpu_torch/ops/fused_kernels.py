@@ -1,9 +1,11 @@
-"""Kernels C and D — the fused Miller f-accumulation and the streamed
-windowed x-power ladder, on the batch-last kernel layout.
+"""Kernels C, D and K12 — the fused Miller f-accumulation, the streamed
+windowed x-power ladder and the witness bit ladder, on the batch-last kernel
+layout.
 
 Counterparts of ``pairing_tpu/ops/fused_kernels.py``'s ``miller_f_pallas``
-(K = 1, no per-step collection) and ``pow_ladder_stream_pallas`` with its
-host side ``pow_x_streamed``. Each kernel loops over its steps inside one
+(any number of pairs per product, optional per-step collection),
+``pow_ladder_stream_pallas`` with its host side ``pow_x_streamed``, and
+``exp_bits_ladder_pallas``. Each kernel loops over its steps inside one
 launch and keeps the Fq12 accumulator in the thread; the plain versions
 below run the same schedule with the field library.
 """
@@ -25,7 +27,10 @@ from . import klayout as KL
 from .fq12_kernels import kf12_from, kf12_view
 
 MILLER_F = dispatch.KERNELS["miller_f"]
+MILLER_F_MULTI = dispatch.KERNELS["miller_f_multi"]
+MILLER_F_COLLECT = dispatch.KERNELS["miller_f_collect"]
 POW_LADDER_STREAM = dispatch.KERNELS["pow_ladder_stream"]
+EXP_BITS = dispatch.KERNELS["exp_bits"]
 
 # ---------------------------------------------------------------------------
 # Kernel C: Miller f-accumulation
@@ -62,47 +67,66 @@ def _line(arr: torch.Tensor, slots) -> dict:
     return {s: Fp2(c[2 * jj], c[2 * jj + 1]) for jj, s in enumerate(slots)}
 
 
-def miller_f_plain(tg, ch, ep, sched: np.ndarray) -> torch.Tensor:
+def miller_f_plain(tg, ch, ep, sched: np.ndarray, n_pairs: int = 1, collect: bool = False):
     """Plain PyTorch version of kernel C."""
-    f = F12.fq12_cap(F12.fq12_one((tg.shape[-1],), tg.device))
+    lanes = tg.shape[-1] // n_pairs
+    f = F12.fq12_cap(F12.fq12_one((lanes,), tg.device))
+    rows = []
     for t, (flag, row) in enumerate(sched.tolist()):
         if flag != 2:
             f = F12.fq12_sq(f)
-            f = F12.fq12_mul_sparse(f, _line(tg[t], F12.LINE_EQUAL_SLOTS))
-        if flag == 1:
-            f = F12.fq12_mul_sparse(f, _line(ch[row], F12.LINE_UNEQUAL_SLOTS))
-        if flag == 2:
-            f = F12.fq12_mul_sparse(f, _line(ep[row], F12.LINE_UNEQUAL_SLOTS))
+        for k in range(n_pairs):
+            cols = slice(k * lanes, (k + 1) * lanes)
+            if flag != 2:
+                f = F12.fq12_mul_sparse(f, _line(tg[t, ..., cols], F12.LINE_EQUAL_SLOTS))
+            if flag != 0:
+                src = ch if flag == 1 else ep
+                f = F12.fq12_mul_sparse(f, _line(src[row, ..., cols], F12.LINE_UNEQUAL_SLOTS))
         f = F12.fq12_cap(f)
-    return kf12_from(f)
+        if collect:
+            rows.append(kf12_from(f))
+    out = kf12_from(f)
+    return (out, torch.stack(rows)) if collect else out
 
 
 def miller_f(tg: torch.Tensor, ch: torch.Tensor, ep: torch.Tensor,
-             flags: Sequence[int], ch_rows: Sequence[int]) -> torch.Tensor:
-    """Phase D for one pair per lane; returns f as KF12 [12, NLIMBS, B].
+             flags: Sequence[int], ch_rows: Sequence[int], n_pairs: int = 1,
+             collect: bool = False):
+    """Phase D for products of ``n_pairs`` pairs; returns f as KF12
+    [12, NLIMBS, B], and with ``collect`` also the accumulator after every
+    step, fs [n_steps, 12, NLIMBS, B] (fs[-1] equals f).
 
-    tg: tangent lines [n_loop, 6, NLIMBS, B] (slots 0, 3, 4 as c0/c1 rows);
-    ch: chord lines [n_ch, 6, NLIMBS, B] (slots 2, 3, 5), step t reads
-    ``ch[ch_rows[t]]`` when ``flags[t] == 1``; ep: epilogue lines
-    [n_ep, 6, NLIMBS, B] for the trailing flag-2 steps.
+    Line blocks hold K = n_pairs * B columns, pair-major: pair k of product
+    b is column ``k * B + b``. tg: tangent lines [n_loop, 6, NLIMBS, K]
+    (slots 0, 3, 4 as c0/c1 rows); ch: chord lines [n_ch, 6, NLIMBS, K]
+    (slots 2, 3, 5), step t reads ``ch[ch_rows[t]]`` when ``flags[t] == 1``;
+    ep: epilogue lines [n_ep, 6, NLIMBS, K] for the trailing flag-2 steps.
+    Each step squares once for all pairs, then multiplies pair k's tangent
+    and chord for k = 0..n_pairs-1.
     """
     sched = miller_schedule(flags, ch_rows)
     n_loop = int((sched[:, 0] != 2).sum())
     n_ep = len(sched) - n_loop
     if tg.shape[0] < n_loop or ep.shape[0] < n_ep:
         raise ValueError("fewer line rows than the schedule reads")
+    if n_pairs < 1 or tg.shape[-1] % n_pairs:
+        raise ValueError(f"{tg.shape[-1]} line columns do not split into {n_pairs} pairs")
     if not dispatch.on_cuda(tg, ch, ep):
-        return miller_f_plain(tg, ch, ep, sched)
-    lanes = tg.shape[-1]
-    dispatch.check_operand(tg, "tg", (tg.shape[0], 6), lanes)
-    dispatch.check_operand(ch, "ch", (ch.shape[0], 6), lanes)
-    dispatch.check_operand(ep, "ep", (ep.shape[0], 6), lanes)
+        return miller_f_plain(tg, ch, ep, sched, n_pairs, collect)
+    cols = tg.shape[-1]
+    lanes = cols // n_pairs
+    dispatch.check_operand(tg, "tg", (tg.shape[0], 6), cols)
+    dispatch.check_operand(ch, "ch", (ch.shape[0], 6), cols)
+    dispatch.check_operand(ep, "ep", (ep.shape[0], 6), cols)
     if int(sched[sched[:, 0] == 1, 1].max(initial=0)) >= ch.shape[0]:
         raise ValueError("chord row out of range")
     sched_t = torch.as_tensor(sched, device=tg.device)
-    out = torch.empty((12,) + tuple(tg.shape[2:]), dtype=torch.int32, device=tg.device)
-    MILLER_F(tg, ch, ep, sched_t, len(sched), out, lanes)
-    return out
+    opts = dict(dtype=torch.int32, device=tg.device)
+    out = torch.empty((12, F.NLIMBS, lanes), **opts)
+    fs = torch.empty((len(sched), 12, F.NLIMBS, lanes), **opts) if collect else None
+    kernel = MILLER_F_COLLECT if collect else MILLER_F_MULTI if n_pairs > 1 else MILLER_F
+    kernel(tg, ch, ep, sched_t, len(sched), n_pairs, out, 0 if fs is None else fs, lanes)
+    return (out, fs) if collect else out
 
 
 # ---------------------------------------------------------------------------
@@ -181,3 +205,43 @@ def pow_x_streamed(m_arr: torch.Tensor) -> torch.Tensor:
     """m^BN_X on the cyclotomic subgroup via the streamed w4 ladder."""
     stream, rows = pow_x_table(m_arr)
     return pow_ladder_stream(stream, BN_X_W4_DIGITS, rows)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K12: bit ladder with every row written out (witness path)
+# ---------------------------------------------------------------------------
+
+#: MSB-first 64-bit decomposition of BN_X (the exp-offload exponent).
+BN_X_BITS_MSB = np.asarray([(BN_X >> (63 - i)) & 1 for i in range(64)], np.int32)
+
+
+def exp_bits_ladder_plain(x: torch.Tensor, bits) -> torch.Tensor:
+    """Plain PyTorch version of kernel K12; returns the rows."""
+    xv = kf12_view(x)
+    f = F12.fq12_cap(F12.fq12_one((x.shape[-1],), x.device))
+    rows = []
+    for b in bits:
+        f = F12.fq12_cyclotomic_sq(f)
+        if int(b):
+            f = F12.fq12_cap(F12.fq12_mul(f, xv))
+        rows.append(kf12_from(f))
+    return torch.stack(rows)
+
+
+def exp_bits_ladder(x: torch.Tensor, bits):
+    """x^e for the MSB-first ``bits`` of e, shared by every lane, with every
+    ladder row: row_s = row_{s-1}^2 * x^{b_s} from row_{-1} = 1. Squares are
+    cyclotomic, so x must lie in the cyclotomic subgroup (an easy-part
+    output). x: KF12 [12, NLIMBS, B] -> (out, rows [len(bits), 12, NLIMBS,
+    B]); out is rows[-1]."""
+    bits = np.asarray(bits, np.int32)
+    if bits.ndim != 1 or len(bits) == 0 or not np.isin(bits, (0, 1)).all():
+        raise ValueError("bits must be a non-empty 0/1 vector")
+    if not dispatch.on_cuda(x):
+        rows = exp_bits_ladder_plain(x, bits)
+        return rows[-1], rows
+    lanes = x.shape[-1]
+    dispatch.check_operand(x, "x", (12,), lanes)
+    rows = torch.empty((len(bits),) + tuple(x.shape), dtype=torch.int32, device=x.device)
+    EXP_BITS(x, torch.as_tensor(bits, device=x.device), len(bits), rows, lanes)
+    return rows[-1], rows

@@ -2,8 +2,11 @@
 
 ``pairing(p, q)`` composes the Miller loop and the final exponentiation
 over a batch of independent pairs: p/q carry any leading batch shape (the
-same for both) and the result is the batch of Fq12 pairing values. Between
-the two public edges everything stays in the batch-last kernel layout.
+same for both) and the result is the batch of Fq12 pairing values.
+``multi_pairing(ps, qs)`` is the product of K pairings with one shared final
+exponentiation (the Groth16-verification shape): the leading axis of ps/qs
+is K. Between the two public edges everything stays in the batch-last
+kernel layout.
 """
 
 from __future__ import annotations
@@ -13,10 +16,17 @@ from ..curves.g2 import G2
 from ..fields.fp12 import Fq12
 from ..ops.fq12_kernels import from_kernel_layout
 from .final_exp import final_exp_k
-from .miller_loop import flatten_pairs, miller_loop_k
+from .miller_loop import flatten_pairs, miller_loop_k, multi_miller_loop_k
 
 
 def pairing(p: G1, q: G2) -> Fq12:
     """e(P, Q) = final_exp(miller_loop(Q, P)); batched."""
     qf, pf, bs = flatten_pairs(q, p)
     return from_kernel_layout(final_exp_k(miller_loop_k(qf, pf)), bs)
+
+
+def multi_pairing(ps: G1, qs: G2) -> Fq12:
+    """prod_k e(P_k, Q_k) over the leading axis K of ps/qs, with shared
+    squarings in the Miller loop and one final exponentiation; batched over
+    the remaining axes."""
+    return from_kernel_layout(final_exp_k(multi_miller_loop_k(qs, ps)), ps.batch_shape[1:])

@@ -5,6 +5,10 @@ Montgomery R = 2^273), so a JAX ``Fp``/``G1``/``G2``/``Fq12`` crosses over
 as its pytree leaves converted with ``numpy.asarray``. This module only
 sees numpy arrays and never imports JAX.
 
+It also reshapes point batches (``[K * B]`` pair-major to the ``[K, B]``
+batch of the K-pair products) and reduces limb arrays of either package to
+their field values, for comparing witness npz entries.
+
 Leaf orders (the JAX pytree flatten order):
   G1:   (x, y)
   G2:   (x.c0, x.c1, y.c0, y.c1)
@@ -63,3 +67,31 @@ def fq12_to_leaves(a: Fq12) -> list:
     for s in a.s:
         out += [fp_to_numpy(s.c0), fp_to_numpy(s.c1)]
     return out
+
+
+def map_limbs(a, fn):
+    """A G1 or G2 batch with ``fn`` applied to each coordinate's limb
+    tensor ``[..., 21]`` (static envelopes kept): reshape, tile, slice."""
+    def fp(x: Fp) -> Fp:
+        return Fp(fn(x.limbs), x.bound, x.limb_bound)
+
+    if isinstance(a, G1):
+        return G1(fp(a.x), fp(a.y))
+    return G2(Fp2(fp(a.x.c0), fp(a.x.c1)), Fp2(fp(a.y.c0), fp(a.y.c1)))
+
+
+def reshape_points(a, shape):
+    """A G1 or G2 batch -> the same points with batch shape ``shape``; e.g.
+    K * B pairs in pair-major order -> the [K, B] batch of ``multi_pairing``."""
+    return map_limbs(a, lambda limbs: limbs.reshape(tuple(shape) + (F.NLIMBS,)))
+
+
+def limb_values(arr) -> np.ndarray:
+    """Limb rows ``[..., 21]`` of either package (a witness npz entry, say)
+    -> their values mod p as Python ints ``[...]``: equal arrays mean equal
+    field elements in the same domain, whatever the representatives."""
+    a = np.asarray(arr)
+    if a.shape[-1] != F.NLIMBS:
+        raise ValueError(f"limb axis is {a.shape[-1]}, want {F.NLIMBS}")
+    weights = np.array([1 << (F.RADIX_BITS * i) for i in range(F.NLIMBS)], dtype=object)
+    return (a.astype(object) * weights).sum(axis=-1) % P

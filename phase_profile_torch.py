@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's main path, on one CUDA card.
+"""Where the time goes in the PyTorch port's paths, on one CUDA card.
 
-    python3 phase_profile_torch.py [--batch 16384] [--unique 16] [--reps 3]
+    python3 phase_profile_torch.py [--entry pairing|multi_pairing|pairing_witness]
+                                   [--batch 16384] [--pairs 4] [--unique 16] [--reps 3]
 
-Times whole ``pairing_tpu_torch.pairing`` calls between device
-synchronisations, then profiles one more call with ``torch.profiler``. The
-per-phase numbers come from the ``record_function`` ranges that the Miller
-loop and the final exponentiation open around their phases
-(``miller_loop.*``, ``final_exp.*``): for each range, read from the
-profiled call's Chrome trace, its host span and the device time of the
-kernels launched inside it. Device busy time is summed
+Times whole calls of the entry point between device synchronisations:
+``pairing`` over ``--batch`` lanes, ``multi_pairing`` over ``--batch``
+products of ``--pairs`` pairs each, or ``pairing_witness`` (trace
+generation, no serialization) over ``--batch`` lanes. Then it profiles one
+more call with ``torch.profiler``. The per-phase numbers come from the
+``record_function`` ranges that the Miller loop, the final exponentiation
+and the witness collection open around their phases (``miller_loop.*``,
+``final_exp.*``, ``witness.*``): for each range, read from the profiled
+call's Chrome trace, its host span and the device time of the kernels
+launched inside it. Device busy time is summed
 over kernel events of that same profiled call, so the idle share pairs busy
 and wall time of one run. Prints the card's name and power limit, then one
 JSON line. Needs a CUDA device; the correctness checks live in
@@ -28,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PHASE_PREFIXES = ("miller_loop.", "final_exp.")
+PHASE_PREFIXES = ("miller_loop.", "final_exp.", "witness.")
 
 
 def _sync_time(fn):
@@ -66,12 +70,12 @@ def phase_device_times(trace: dict) -> dict:
     return out
 
 
-def profile_pairing(pt, p, q, trace_path: Path, top: int = 12) -> dict:
+def profile_call(fn, trace_path: Path, top: int = 12) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _sync_time(lambda: pt.pairing(p, q))
+        _, wall = _sync_time(fn)
     trace_path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace_path))
     phases = phase_device_times(json.loads(trace_path.read_text()))
@@ -93,7 +97,10 @@ def profile_pairing(pt, p, q, trace_path: Path, top: int = 12) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--entry", choices=("pairing", "multi_pairing", "pairing_witness"),
+                    default="pairing")
     ap.add_argument("--batch", type=int, default=16384)
+    ap.add_argument("--pairs", type=int, default=4, help="K of multi_pairing")
     ap.add_argument("--unique", type=int, default=16)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=5)
@@ -106,11 +113,11 @@ def main() -> int:
         return 1
 
     import pairing_tpu_torch as pt
-    from pairing_tpu_torch.fields.fp import Fp
-    from pairing_tpu_torch.fields.fp2 import Fp2
+    from pairing_tpu_torch import witness as W
     from pairing_tpu_torch.ops import build
     from pairing_tpu_torch.oracle import native as o
     from pairing_tpu_torch.utils import bn254 as c
+    from pairing_tpu_torch.utils.interop import map_limbs
 
     build.load()
     rng = np.random.default_rng(args.seed)
@@ -118,25 +125,30 @@ def main() -> int:
           for _ in range(2 * args.unique)]
     g1s = [o.g1_mul(c.G1_GEN, k) for k in ks[: args.unique]]
     g2s = [o.g2_mul((c.G2_GEN_X, c.G2_GEN_Y), k) for k in ks[args.unique:]]
-    reps = -(-args.batch // args.unique)
+    shape = (args.pairs, args.batch) if args.entry == "multi_pairing" else (args.batch,)
+    lanes = int(np.prod(shape))
+    reps = -(-lanes // args.unique)
 
-    def tile(a: Fp) -> Fp:
-        return Fp(a.limbs.repeat(reps, 1)[: args.batch], a.bound, a.limb_bound)
+    def tile(limbs):
+        return limbs.repeat(reps, 1)[:lanes].reshape(shape + (limbs.shape[-1],))
 
-    p1, q1 = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
-    p = pt.G1(tile(p1.x), tile(p1.y))
-    q = pt.G2(Fp2(tile(q1.x.c0), tile(q1.x.c1)), Fp2(tile(q1.y.c0), tile(q1.y.c1)))
+    p = map_limbs(pt.g1_from_ints(g1s, "cuda"), tile)
+    q = map_limbs(pt.g2_from_ints(g2s, "cuda"), tile)
+    fn = {"pairing": lambda: pt.pairing(p, q),
+          "multi_pairing": lambda: pt.multi_pairing(p, q),
+          "pairing_witness": lambda: W.pairing_witness(p, q)}[args.entry]
 
-    _, warm = _sync_time(lambda: pt.pairing(p, q))
-    whole = [_sync_time(lambda: pt.pairing(p, q))[1] for _ in range(args.reps)]
-    prof = profile_pairing(pt, p, q, args.trace)
+    _, warm = _sync_time(fn)
+    whole = [_sync_time(fn)[1] for _ in range(args.reps)]
+    prof = profile_call(fn, args.trace)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(card)
-    print(json.dumps({"batch": args.batch, "warmup_s": warm, "pairing_s": whole,
-                      "profile": prof}))
+    print(json.dumps({"entry": args.entry, "batch": args.batch,
+                      "pairs": args.pairs if args.entry == "multi_pairing" else 1,
+                      "warmup_s": warm, "call_s": whole, "profile": prof}))
     return 0
 
 

@@ -18,6 +18,11 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+#: The kernels of ``pairing`` (one pair per lane), the main path.
+PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "fq12_slotwise",
+                   "fp_pow_bits", "fq12_inv", "trajectory", "prefix_products",
+                   "running_inverse", "lines")
+
 
 @pytest.fixture(scope="module")
 def gen():
@@ -168,8 +173,94 @@ def test_pairing_on_card_matches_oracle(gen):
     g2s = [o.g2_mul((c.G2_GEN_X, c.G2_GEN_Y), k) for k in ks[3:]]
     dispatch.reset_launch_counts()
     out = pt.pairing(pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda"))
-    assert all(n > 0 for n in dispatch.launch_counts().values())
+    counts = dispatch.launch_counts()
+    assert all(counts[name] > 0 for name in PAIRING_KERNELS), counts
     assert pt.fq12_to_int_coeffs(out) == [o.pairing(p, q) for p, q in zip(g1s, g2s)]
+
+
+@pytest.mark.parametrize("n_pairs, collect", [(2, False), (3, True), (1, True)])
+def test_miller_f_modes_match_plain(gen, n_pairs, collect):
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.pairing import miller_loop as ML
+
+    lanes = 33
+    tg = rand_kf12((ML.N_STEPS, 6), n_pairs * lanes, gen)
+    ch = rand_kf12((ML.N_ADDS, 6), n_pairs * lanes, gen)
+    ep = rand_kf12((2, 6), n_pairs * lanes, gen)
+    sched = FU.miller_schedule(ML.MILLER_FLAGS, ML.CHORD_ROWS)
+    kernel = FU.MILLER_F_COLLECT if collect else FU.MILLER_F_MULTI
+    before = kernel.launches
+    got = FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS, n_pairs, collect)
+    assert kernel.launches == before + 1
+    assert_same(got, FU.miller_f_plain(tg, ch, ep, sched, n_pairs, collect))
+
+
+@pytest.mark.parametrize("lanes", [33, 1024])
+def test_exp_bits_kernel_matches_plain(gen, lanes):
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.pairing.final_exp import easy_part_k
+
+    x = easy_part_k(rand_kf12((12,), lanes, gen))
+    out, rows = FU.exp_bits_ladder(x, FU.BN_X_BITS_MSB)
+    want = FU.exp_bits_ladder_plain(x, FU.BN_X_BITS_MSB)
+    assert_same((out, rows), (want[-1], want))
+
+
+@pytest.mark.parametrize("lanes", [33, 1024])
+def test_affine_export_kernel_matches_plain(gen, lanes):
+    from pairing_tpu_torch.ops import fq2_vm as VM
+
+    xy, zinv = rand_kf12((130, 4), lanes, gen), rand_kf12((130, 2), lanes, gen)
+    assert_same(VM.affine_export(xy, zinv), VM.affine_export_plain(xy, zinv))
+
+
+def _seeded_points(n, seed):
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.utils import bn254 as c
+
+    rng = np.random.default_rng(seed)
+    ks = [int.from_bytes(rng.bytes(32), "little") % (c.R_SCALAR - 1) + 1 for _ in range(2 * n)]
+    return ([o.g1_mul(c.G1_GEN, k) for k in ks[:n]],
+            [o.g2_mul((c.G2_GEN_X, c.G2_GEN_Y), k) for k in ks[n:]])
+
+
+def test_multi_pairing_on_card_matches_oracle(gen):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.utils.interop import reshape_points
+
+    K, B = 3, 2
+    g1s, g2s = _seeded_points(K * B, 12)
+    dispatch.reset_launch_counts()
+    out = pt.multi_pairing(reshape_points(pt.g1_from_ints(g1s, "cuda"), (K, B)),
+                           reshape_points(pt.g2_from_ints(g2s, "cuda"), (K, B)))
+    assert dispatch.launch_counts()["miller_f_multi"] == 1
+    want = [o.final_exp(o.multi_miller_loop([(g1s[k * B + b], g2s[k * B + b])
+                                             for k in range(K)])) for b in range(B)]
+    assert pt.fq12_to_int_coeffs(out) == want
+
+
+def test_witness_on_card_passes_both_checkers(gen, tmp_path):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch import witness as W
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.utils.interop import reshape_points
+
+    K, B = 2, 2
+    g1s, g2s = _seeded_points(K * B, 13)
+    p = reshape_points(pt.g1_from_ints(g1s, "cuda"), (K, B))
+    q = reshape_points(pt.g2_from_ints(g2s, "cuda"), (K, B))
+    dispatch.reset_launch_counts()
+    out, trace = W.multi_pairing_witness(p, q)
+    counts = dispatch.launch_counts()
+    assert all(counts[n] > 0 for n in ("miller_f_collect", "exp_bits", "affine_export")), counts
+    assert pt.fq12_to_int_coeffs(out) == pt.fq12_to_int_coeffs(pt.multi_pairing(p, q))
+    path = str(tmp_path / "w.npz")
+    W.save_pairing_witness(path, p, q, out, trace)
+    meta, data = W.load_pairing_witness(path)
+    W.check_pairing_constraints(meta, data)
+    W.verify_pairing_witness(meta, data)
 
 
 def test_kernel_wrapper_rejects_bad_operands(gen):

@@ -267,7 +267,8 @@ def _code_without_docstrings(path: Path) -> str:
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("rel", ["utils/bn254.py", "oracle/native.py"])
+@pytest.mark.parametrize("rel", ["utils/bn254.py", "oracle/native.py",
+                                 "witness/constraints.py", "witness/verify.py"])
 def test_copied_module_matches_original(rel):
     """The copies differ from the JAX package's modules in docstrings only."""
     ours = _code_without_docstrings(REPO / "pairing_tpu_torch" / rel)

@@ -1,12 +1,16 @@
-"""Kernels C and D's plain versions against the JAX package.
+"""Kernels C, D and K12's plain versions against the JAX package and the oracle.
 
 * Phase D: ``ops.fused_kernels.miller_f`` on CPU tensors (its plain
   version) over a short schedule (4 loop steps, 2 of them with a chord,
   then the 2 fused epilogue steps) with seeded random lines, against the
   JAX package's ``miller_loop._phase_d_scan`` followed by two
   ``fq12_mul_sparse`` calls (its XLA path).
+* Phase D with K = 2 pairs per product and per-step collection: every
+  collected row against the oracle's shared-square recurrence.
 * The x-power ladder: ``pow_x_streamed`` on CPU tensors (kernels A, B and
   D all take their plain versions) against ``final_exp.pow_x_cyclotomic``.
+* The witness bit ladder (K12): a 5-bit exponent row by row, and the full
+  ``BN_X_BITS_MSB`` on one lane, against the oracle.
 Exact (canonical) comparison; every output in the kernel envelope.
 """
 
@@ -20,6 +24,7 @@ from pairing_tpu.fields import fp12 as JF12
 from pairing_tpu.ops import fused_kernels as JFU
 from pairing_tpu.pairing import final_exp as JFE
 from pairing_tpu.pairing import miller_loop as JML
+from pairing_tpu_torch.fields import fp as TF
 from pairing_tpu_torch.fields import fp12 as TF12
 from pairing_tpu_torch.ops import fq12_kernels as FK
 from pairing_tpu_torch.ops import fused_kernels as FU
@@ -123,3 +128,82 @@ def test_miller_schedule_rejects_bad_flags(flags, rows):
 def test_miller_schedule_rows():
     sched = FU.miller_schedule([0, 1, 0, 1, 2, 2], [-1, 3, -1, 7, -1, -1])
     assert sched.tolist() == [[0, 0], [1, 3], [0, 0], [1, 7], [2, 0], [2, 1]]
+
+
+def _mont_rows(vals):
+    """Python ints (values mod p) -> Montgomery limb rows [len, 21]."""
+    return np.stack([TF.int_to_limbs(v * TF.R_MONT % c.P) for v in vals])
+
+
+def test_miller_f_plain_k2_collect_matches_oracle_recurrence():
+    """K = 2 pairs per product, per-step collection: every row of fs is the
+    oracle's shared-square recurrence, and fs[-1] is the returned f."""
+    rng = np.random.default_rng(303)
+    K, lanes = 2, 2
+    flags = [0, 1, 1, 0, 2, 2]
+    ch_rows = [-1, 0, 1, -1, -1, -1]
+
+    def lines(n):  # ints [n, K * lanes, 3 slots, 2] and kernel rows [n, 6, 21, K * lanes]
+        vals = [[[[int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(2)]
+                  for _ in range(3)] for _ in range(K * lanes)] for _ in range(n)]
+        flat = [v for step in vals for col in step for slot in col for v in slot]
+        limbs = _mont_rows(flat).reshape(n, K * lanes, 6, 21)
+        return vals, torch.as_tensor(np.ascontiguousarray(limbs.transpose(0, 2, 3, 1)))
+
+    tg_v, tg = lines(4)
+    ch_v, ch = lines(2)
+    ep_v, ep = lines(2)
+    f, fs = FU.miller_f(tg, ch, ep, flags, ch_rows, n_pairs=K, collect=True)
+    assert fs.shape == (len(flags), 12, 21, lanes)
+    assert torch.equal(fs[-1], f)
+
+    def sparse(slots, v):
+        b = [None] * 6
+        for s, x in zip(slots, v):
+            b[s] = tuple(x)
+        return b
+
+    for b in range(lanes):
+        want = o.fq12_one()
+        for t, flag in enumerate(flags):
+            if flag != 2:
+                want = o.fq12_mul(want, want)
+            for k in range(K):
+                col = k * lanes + b
+                if flag != 2:
+                    want = o.sparse_fp12_multiply(want, sparse((0, 3, 4), tg_v[t][col]))
+                if flag == 1:
+                    want = o.sparse_fp12_multiply(want, sparse((2, 3, 5), ch_v[ch_rows[t]][col]))
+                if flag == 2:
+                    want = o.sparse_fp12_multiply(want, sparse((2, 3, 5), ep_v[t - 4][col]))
+            assert port_ints(fs[t])[b] == want, (t, b)
+
+
+def test_exp_bits_ladder_plain_rows_match_oracle():
+    rng = np.random.default_rng(304)
+    coeffs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+              for _ in range(2)]
+    arr, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(coeffs, "cpu"))
+    bits = [1, 0, 1, 1, 0]
+    out, rows = FU.exp_bits_ladder(arr, bits)
+    assert rows.shape == (5, 12, 21, 2) and torch.equal(out, rows[-1])
+    e = 0
+    for s, bit in enumerate(bits):
+        e = 2 * e + bit
+        assert port_ints(rows[s]) == [o.pow_fq12(x, e) for x in coeffs], s
+
+
+def test_exp_bits_ladder_plain_full_bn_x_matches_oracle():
+    assert FU.BN_X_BITS_MSB.tolist() == JFU.BN_X_BITS_MSB.tolist()
+    rng = np.random.default_rng(305)
+    x = o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+    arr, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs([x], "cpu"))
+    out, rows = FU.exp_bits_ladder(arr, FU.BN_X_BITS_MSB)
+    assert rows.shape[0] == 64
+    assert port_ints(out) == [o.pow_fq12(x, c.BN_X)]
+
+
+@pytest.mark.parametrize("bits", [[], [0, 2], [[1, 0]]])
+def test_exp_bits_ladder_rejects_bad_bits(bits):
+    with pytest.raises(ValueError):
+        FU.exp_bits_ladder(torch.zeros((12, 21, 1), dtype=torch.int32), bits)

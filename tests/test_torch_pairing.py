@@ -79,7 +79,8 @@ def test_pairing_matches_jax_and_oracle(fixture):
 def test_import_needs_no_jax_nvcc_or_triton():
     code = (
         "import sys, pairing_tpu_torch, pairing_tpu_torch.ops.fused_kernels, "
-        "pairing_tpu_torch.ops.build, pairing_tpu_torch.utils.interop\n"
+        "pairing_tpu_torch.ops.build, pairing_tpu_torch.ops.fq2_vm, "
+        "pairing_tpu_torch.utils.interop, pairing_tpu_torch.witness\n"
         "bad = [m for m in ('jax', 'pairing_tpu', 'triton') if m in sys.modules]\n"
         "assert not bad, bad\n"
     )
