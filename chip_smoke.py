@@ -35,11 +35,23 @@ toolkit (nvcc). It
      both of the port's checkers must accept them;
   6. runs ``multi_pairing_witness`` at K = 4 on 64 products, writes all of
      it, and both checkers must accept it;
-  7. prints one JSON line of per-kernel results, the card's name and power
+  7. runs the final exponentiation's other routes on the main path's lanes:
+     ``pairing`` with the fused hard-part chain (PAIRING_FUSED_CHAIN, kernel
+     K15), equal to the unfused run on every lane, with pairings/s of both
+     forms; the split ``hard_part(easy_part(f))`` on the main path's Miller
+     outputs (K17 three times, G once), equal to the oracle's final_exp;
+     ``fq12_pow`` at 16384 lanes of 256 distinct random elements for
+     e = 0b101101110101 and e = BN_X (K18, A, G), equal to the oracle; and
+     the kernel-layout ops ``kmul_sparse`` (both line shapes), ``pow_ladder``
+     (K16) and ``ksq`` (K18) at 16384 lanes;
+  8. prints one JSON line of per-kernel results, the card's name and power
      limit, and last ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of paths 3-6 and read just after;
-every kernel the path runs must have launched in it.
+Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
+shapes) against their plain versions, and runs K16, K17 and D on the same m:
+the three ladder designs for m^BN_X side by side. Launch counts are set to 0
+just before each of the paths of steps 3-7 and read just after; every kernel
+the path runs must have launched in it.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also fails at once without a CUDA device. It imports nothing of JAX.
@@ -47,7 +59,9 @@ line; it also fails at once without a CUDA device. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -90,6 +104,13 @@ KERNEL_SOURCES = {
     "exp_bits": ("pairing_tpu_torch/csrc/exp_bits.cu", "pairing_tpu/ops/fused_kernels.py:702"),
     "affine_export": ("pairing_tpu_torch/csrc/affine_export.cu",
                       "pairing_tpu/ops/fq2_vm.py:334"),
+    "fq12_mul_sparse": ("pairing_tpu_torch/csrc/fq12_mul.cu",
+                        "pairing_tpu/ops/fq12_kernels.py:275"),
+    "fq12_sq": ("pairing_tpu_torch/csrc/fq12_sq.cu", "pairing_tpu/ops/fq12_kernels.py:290"),
+    "pow_ladder": ("pairing_tpu_torch/csrc/pow_naf.cu", "pairing_tpu/ops/fused_kernels.py:355"),
+    "pow_ladder_w4": ("pairing_tpu_torch/csrc/pow_w4.cu", "pairing_tpu/ops/fused_kernels.py:501"),
+    "hard_chain": ("pairing_tpu_torch/csrc/hard_chain.cu",
+                   "pairing_tpu/ops/fused_kernels.py:953"),
 }
 
 #: The kernels each path runs; each must launch in its path's run.
@@ -99,6 +120,12 @@ PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "
 MULTI_KERNELS = tuple("miller_f_multi" if n == "miller_f" else n for n in PAIRING_KERNELS)
 WITNESS_KERNELS = tuple(n for n in PAIRING_KERNELS if n not in ("miller_f", "pow_ladder_stream")
                         ) + ("miller_f_collect", "exp_bits", "affine_export")
+FUSED_KERNELS = PAIRING_KERNELS + ("hard_chain",)
+SPLIT_KERNELS = ("pow_ladder_w4", "fq12_inv", "fq12_mul", "fq12_cyc_sq", "fq12_slotwise")
+POW_KERNELS = ("fq12_sq", "fq12_mul", "fq12_inv")
+KLAYOUT_KERNELS = ("fq12_mul_sparse", "pow_ladder", "fq12_sq")
+POW_E = 0b101101110101  # its NAF has -1 digits (tests/test_pairing.py)
+LINE_SHAPES = ((0, 3, 4), (2, 3, 5))
 
 # ---------------------------------------------------------------------------
 # Operation counts: the least number of 32-bit integer multiply-adds (IMADs)
@@ -130,6 +157,17 @@ FQ12_DENSE = tower(54, 12)
 FQ12_SQ = tower(36, 12)
 FQ12_SPARSE = tower(39, 12)
 CYC_SQ = tower(18, 12)
+#: The hard-part chain: 13 products, 4 cyclotomic squares, and the Fq2
+#: products by constants of its 7 Frobenius maps (counted from kernel E's
+#: slot programs below).
+HARD_CHAIN_PRODUCTS, HARD_CHAIN_SQUARES = 13, 4
+
+
+def ladder_imads(digits, start_squares: bool) -> int:
+    """A cyclotomic ladder: a square per digit (after the first when the
+    ladder starts at the top digit's entry), a dense product per nonzero one."""
+    steps = digits if start_squares else digits[1:]
+    return len(steps) * CYC_SQ + int(np.count_nonzero(steps)) * FQ12_DENSE
 
 
 def pow_imads(e: int) -> int:
@@ -224,6 +262,7 @@ def kernel_phases(results, bound) -> None:
     from pairing_tpu_torch.ops import fp_kernels as FPK
     from pairing_tpu_torch.ops import fq12_kernels as FK
     from pairing_tpu_torch.ops import fq2_vm as VM
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.ops import klayout as KL
     from pairing_tpu_torch.ops import line_kernels as LK
@@ -331,6 +370,56 @@ def kernel_phases(results, bound) -> None:
     compare_kernel("affine_export", lambda: VM.affine_export(xy, zi),
                    lambda: VM.affine_export_plain(xy, zi), results, bound,
                    B * n_states * (FP2_SQ + 3 * FP2_MUL), nbytes((xy, zi)))
+    del xy, zi
+
+    # this slice's kernels: K18, kernel A's sparse mode, K16, K17, K15
+    compare_kernel("fq12_sq", lambda: FK.fq12_sq(a), lambda: FK.fq12_sq_plain(a), results, bound,
+                   B * FQ12_SQ, nbytes((a,)))
+
+    lines = [rand(12) for _ in LINE_SHAPES]  # only the present slots are read
+    compare_kernel("fq12_mul_sparse",
+                   lambda: tuple(FK.fq12_mul_sparse(a, sh, ln) for sh, ln in zip(LINE_SHAPES, lines)),
+                   lambda: tuple(FK.fq12_mul_sparse_plain(a, sh, ln)
+                                 for sh, ln in zip(LINE_SHAPES, lines)),
+                   results, bound, len(LINE_SHAPES) * B * FQ12_SPARSE,
+                   len(LINE_SHAPES) * nbytes((a,)) + sum(nbytes((ln,)) // 2 for ln in lines),
+                   calls=len(LINE_SHAPES))
+    del lines
+
+    mc = KL.kconj(m)
+    naf, w4 = FU.BN_X_LADDER_DIGITS, FU.BN_X_W4_DIGITS
+    compare_kernel("pow_ladder", lambda: FU.pow_ladder(m, mc, naf),
+                   lambda: FU.pow_ladder_plain(m, mc, naf), results, bound,
+                   B * ladder_imads(naf, True), nbytes((m, mc)))
+    compare_kernel("pow_ladder_w4", lambda: FU.pow_ladder_w4(m, w4),
+                   lambda: FU.pow_ladder_w4_plain(m, w4), results, bound,
+                   B * (CYC_SQ + 3 * FQ12_DENSE + ladder_imads(w4, False)), nbytes((m,)))
+    # the three ladder designs for m^BN_X on one m: one value, times side by side
+    mx = FU.pow_x_streamed(m)
+    same = [kf12_canonical(FU.pow_ladder(m, mc, naf)), kf12_canonical(FU.pow_ladder_w4(m, w4))]
+    check(all(torch.equal(x, kf12_canonical(mx)) for x in same), "the three ladders differ")
+    d_ms = timed_ms(lambda: FU.pow_x_streamed(m), KERNEL_REPS)
+    print(f"m^BN_X three ways on one m ({B} lanes, equal): D {d_ms:.3f} ms with its table "
+          f"(A, B, E; the ladder kernel alone {results['pow_ladder_stream']['ms']:.3f} ms), "
+          f"K16 plain NAF {results['pow_ladder']['ms']:.3f} ms, K17 w4 with the table in the "
+          f"kernel {results['pow_ladder_w4']['ms']:.3f} ms", flush=True)
+    del same, mc
+
+    mx2 = FU.pow_x_streamed(mx)
+    chain_in = (m, mx, mx2, FU.pow_x_streamed(mx2))
+    n_const = sum(int(np.count_nonzero(KL._slot_prog(FU.SLOT_POWERS[op - FU.OPC_CONJ])[0]
+                                       & KL.MUL_CONST))
+                  for op, *_ in FU.HARD_CHAIN_PROG if op >= FU.OPC_CONJ)
+    compare_kernel("hard_chain", lambda: FU.hard_chain(*chain_in),
+                   lambda: FU.hard_chain_plain(*chain_in), results, bound,
+                   B * (HARD_CHAIN_PRODUCTS * FQ12_DENSE + HARD_CHAIN_SQUARES * CYC_SQ
+                        + n_const * FP2_MUL), nbytes(chain_in))
+    unfused = FE.hard_part_chain_k(*chain_in, fused=False)
+    check(torch.equal(kf12_canonical(FU.hard_chain(*chain_in)), kf12_canonical(unfused)),
+          "hard_chain differs from the unfused chain")
+    chain_ms = timed_ms(lambda: FE.hard_part_chain_k(*chain_in, fused=False), KERNEL_REPS)
+    print(f"hard-part chain ({B} lanes, equal): 29 launches of A, B, E {chain_ms:.3f} ms, "
+          f"K15 in one launch {results['hard_chain']['ms']:.3f} ms", flush=True)
 
 
 def seeded_pairs():
@@ -435,7 +524,7 @@ def main_path(results, card: str, g1s, g2s):
     print(f"main path: miller_loop {t1 - t0:.3f} s, final_exp {t2 - t1:.3f} s per batch; "
           f"pairing {per_batch:.3f} s per batch of {BATCH} = {BATCH / per_batch:.1f} "
           f"pairings/s on {card}", flush=True)
-    return p, q, canon
+    return p, q, canon, want
 
 
 def multi_path(results, card: str, g1s, g2s):
@@ -476,6 +565,143 @@ def multi_path(results, card: str, g1s, g2s):
           f"{K} = {n_prod / per_batch:.1f} products/s, {K * n_prod / per_batch:.1f} pairings/s "
           f"on {card}", flush=True)
     return ps, qs
+
+
+@contextlib.contextmanager
+def fused_chain():
+    """PAIRING_FUSED_CHAIN set: every final_exp_k runs the chain on K15."""
+    old = os.environ.get("PAIRING_FUSED_CHAIN")
+    os.environ["PAIRING_FUSED_CHAIN"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["PAIRING_FUSED_CHAIN"]
+        else:
+            os.environ["PAIRING_FUSED_CHAIN"] = old
+
+
+def fused_chain_path(results, card: str, p, q, canon, want):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs
+
+    with fused_chain():
+        out, _ = run_path("pairing_fused_chain", FUSED_KERNELS, lambda: pt.pairing(p, q), results)
+    got = canonical(out)
+    check(bool((got == canon).all()), "fused-chain pairing differs from the unfused run")
+    check(fq12_limbs_to_int_coeffs(got[:UNIQUE].cpu().numpy()) == want,
+          "fused-chain pairing differs from the oracle")
+    print(f"fused chain: pairing equals the unfused run on all {BATCH} lanes and the oracle on "
+          f"the {UNIQUE} distinct ones", flush=True)
+    runs, times = 3, {"unfused": 0.0, "fused": 0.0}
+    for _ in range(runs):  # alternating, so both forms see the same host
+        for form in times:
+            with fused_chain() if form == "fused" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pt.pairing(p, q)
+                torch.cuda.synchronize()
+                times[form] += (time.perf_counter() - t0) / runs
+    print("fused chain: " + ", ".join(
+        f"{form} {sec:.3f} s per batch = {BATCH / sec:.1f} pairings/s" for form, sec in
+        times.items()) + f" ({runs} alternating calls each, batch {BATCH}, on {card})", flush=True)
+
+
+def split_final_exp_path(results, p, q, canon):
+    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.ops.fq12_kernels import from_kernel_layout
+    from pairing_tpu_torch.pairing import final_exp as FE
+    from pairing_tpu_torch.pairing.miller_loop import flatten_pairs, miller_loop_k
+
+    qf, pf, bs = flatten_pairs(q, p)
+    f = from_kernel_layout(miller_loop_k(qf, pf), bs)
+    out, seconds = run_path("split_final_exp", SPLIT_KERNELS,
+                            lambda: FE.hard_part(FE.easy_part(f)), results)
+    counts = dispatch.launch_counts()
+    check(counts["pow_ladder_w4"] == 3 and counts["fq12_inv"] == 1
+          and counts["pow_ladder_stream"] == 0 and counts["hard_chain"] == 0,
+          f"split final exponentiation took other kernels: {counts}")
+    got = canonical(out)
+    check(bool((got == canon).all()), "hard_part(easy_part(f)) differs from pairing")
+    miller = fq12_limbs_to_int_coeffs(canonical(f)[:UNIQUE].cpu().numpy())
+    t0 = time.perf_counter()
+    want = [o.final_exp(x) for x in miller]
+    check(fq12_limbs_to_int_coeffs(got[:UNIQUE].cpu().numpy()) == want,
+          "hard_part(easy_part(f)) differs from the oracle's final_exp")
+    print(f"split final exponentiation: hard_part(easy_part(f)) on the main path's {BATCH} "
+          f"Miller outputs equals pairing on every lane and the oracle's final_exp on the "
+          f"{UNIQUE} distinct ones (oracle {time.perf_counter() - t0:.1f} s); first call "
+          f"{seconds:.3f} s", flush=True)
+
+
+def fq12_pow_path(results, card: str):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.pairing.final_exp import fq12_pow
+    from pairing_tpu_torch.utils import bn254 as c
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    rng = np.random.default_rng(SEED + 1)
+    coeffs = [[int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)]
+              for _ in range(UNIQUE)]
+    reps = BATCH // UNIQUE
+    a = map_limbs(pt.fq12_from_int_coeffs(coeffs, DEVICE), lambda limbs: limbs.repeat(reps, 1))
+    for e, name in ((POW_E, "fq12_pow"), (c.BN_X, "fq12_pow_bn_x")):
+        kernels = POW_KERNELS if -1 in c.get_naf(e) else tuple(k for k in POW_KERNELS
+                                                                if k != "fq12_inv")
+        out, seconds = run_path(name, kernels, lambda: fq12_pow(a, e), results)
+        got = canonical(out)
+        tiled = got.reshape(reps, UNIQUE, 12, 21)
+        check(bool((tiled == tiled[:1]).all()), f"{name}: a tiled lane differs")
+        want = [o.pow_fq12(x, e) for x in coeffs]
+        check(fq12_limbs_to_int_coeffs(got[:UNIQUE].cpu().numpy()) == want,
+              f"{name}: differs from the oracle")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fq12_pow(a, e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{name}: e = {e:#x}, {BATCH} lanes ({UNIQUE} distinct) equal the oracle; "
+              f"{sec:.4f} s per batch = {BATCH / sec:.1f} powers/s on {card} (first call "
+              f"{seconds:.3f} s)", flush=True)
+
+
+def klayout_path(results):
+    """The kernel-layout ops of this slice, each against another route to
+    the same value: kmul_sparse against the dense product by the line with
+    its absent slots zeroed, ksq against kmul(a, a), pow_ladder (K16)
+    against pow_x_streamed (D)."""
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.ops import klayout as KL
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical
+    from pairing_tpu_torch.pairing.final_exp import easy_part_k
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 2)
+    a, b = (FK.random_kf12((12,), BATCH, gen) for _ in range(2))
+    m = easy_part_k(a)
+    mc = KL.kconj(m)
+
+    def ops():
+        return ([KL.kmul_sparse(a, sh, b) for sh in LINE_SHAPES], KL.ksq(a),
+                FU.pow_ladder(m, mc, FU.BN_X_LADDER_DIGITS))
+
+    (sparse, sq, mx), _ = run_path("kernel_layout_ops", KLAYOUT_KERNELS, ops, results)
+    for sh, got in zip(LINE_SHAPES, sparse):
+        line = b.clone()
+        for j in set(range(6)) - set(sh):
+            line[2 * j: 2 * j + 2] = 0
+        check(torch.equal(kf12_canonical(got), kf12_canonical(KL.kmul(a, line))),
+              f"kmul_sparse {sh} differs from the dense product")
+    check(torch.equal(kf12_canonical(sq), kf12_canonical(KL.kmul(a, a))), "ksq differs from kmul")
+    check(torch.equal(kf12_canonical(mx), kf12_canonical(FU.pow_x_streamed(m))),
+          "pow_ladder differs from pow_x_streamed")
+    print(f"kernel-layout ops: kmul_sparse (both line shapes), ksq and pow_ladder at {BATCH} "
+          f"lanes equal the dense product, kmul(a, a) and pow_x_streamed", flush=True)
 
 
 def check_written(path, label):
@@ -554,16 +780,24 @@ def main() -> int:
     kernel_phases(results, Bounds())
     torch.cuda.empty_cache()
     g1s, g2s = seeded_pairs()
-    p, q, canon = main_path(results, card, g1s, g2s)
+    p, q, canon, want = main_path(results, card, g1s, g2s)
     ps, qs = multi_path(results, card, g1s, g2s)
     with tempfile.TemporaryDirectory() as tmp:
         witness_path(results, card, p, q, canon, Path(tmp))
         multi_witness(ps, qs, Path(tmp))
+    del ps, qs
+    fused_chain_path(results, card, p, q, canon, want)
+    split_final_exp_path(results, p, q, canon)
+    fq12_pow_path(results, card)
+    klayout_path(results)
 
     # "launches" is the count in the path each kernel (mode) serves
     home = {n: "pairing" for n in PAIRING_KERNELS}
     home.update(miller_f_multi="multi_pairing", miller_f_collect="pairing_witness",
-                exp_bits="pairing_witness", affine_export="pairing_witness")
+                exp_bits="pairing_witness", affine_export="pairing_witness",
+                hard_chain="pairing_fused_chain", pow_ladder_w4="split_final_exp",
+                fq12_sq="fq12_pow", fq12_mul_sparse="kernel_layout_ops",
+                pow_ladder="kernel_layout_ops")
     for name, r in results.items():
         r["launches"] = r["launches_by_path"][home[name]]
     print(json.dumps({"kernels": [results[n] for n in KERNEL_SOURCES]}))

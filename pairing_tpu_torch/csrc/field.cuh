@@ -341,6 +341,47 @@ static __device__ __noinline__ void fq12_mul(const Fq12& a, const Fq12& b,
   }
 }
 
+// out = a^2, dense (any a). Symmetric schoolbook over the 21 unordered slot
+// pairs {i, j}: a cross pair adds 2 a_i a_j, a diagonal one a_i^2, folded by
+// xi when i + j >= 6, every Fq2 term as four Fq products into the output
+// coefficient's unreduced sum (84 Fq products; fq12_mul takes 144). The
+// doubled left operand (< 40p, digits < 2^14) keeps each sum below 640 p^2
+// < R p. out must not alias a.
+static __device__ __noinline__ void fq12_sq(const Fq12& a, Fq12& out) {
+  Fq12 xa;   // xi * a, unreduced (< 20p)
+  Fp na[6];  // 2p - a.c1 per slot
+#pragma unroll 1
+  for (int i = 0; i < 6; ++i) {
+    const Fp2 x = fp2_mul_xi_wide(Fp2{a.c[2 * i], a.c[2 * i + 1]});
+    xa.c[2 * i] = x.c0;
+    xa.c[2 * i + 1] = x.c1;
+    na[i] = fp_neg(a.c[2 * i + 1]);
+  }
+#pragma unroll 1
+  for (int k = 0; k < 12; ++k) {
+    const int s = k >> 1, comp = k & 1;
+    Wide w;
+    wide_zero(w);
+#pragma unroll 1
+    for (int i = 0; i < 6; ++i) {
+      int j = s - i;
+      const Fq12& A = j < 0 ? xa : a;
+      if (j < 0) j += 6;
+      if (j < i) continue;  // the pair {j, i} was taken at i' = j
+      const uint32_t twice = j != i;
+#pragma unroll 1
+      for (int t = 0; t < 2; ++t) {
+        Fp x;
+#pragma unroll
+        for (int l = 0; l < NL; ++l) x.v[l] = A.c[2 * i + t].v[l] << twice;
+        const Fp& y = comp == 0 ? (t == 0 ? a.c[2 * j] : na[j]) : a.c[2 * j + 1 - t];
+        wide_mac(w, x, y);
+      }
+    }
+    mont_reduce(w, out.c[k]);
+  }
+}
+
 // Fq4 square of x + y w^3 with (w^3)^2 = xi, as in Granger-Scott.
 static __device__ __forceinline__ void fq4_sq(const Fp2& x, const Fp2& y,
                                               Fp2& r0, Fp2& r1) {
@@ -437,6 +478,36 @@ static __device__ __forceinline__ void store_fq12(const Fq12& f, int32_t* __rest
   for (int c = 0; c < 12; ++c)
 #pragma unroll
     for (int l = 0; l < NL; ++l) dst[(c * NL + l) * lanes] = (int32_t)f.c[c].v[l];
+}
+
+// Loads of scratch that the same kernel writes: plain loads, never the
+// read-only (__ldg) path, which need not see the kernel's own stores.
+static __device__ __forceinline__ void load_fp_rw(Fp& x, const int32_t* src, size_t lanes) {
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x.v[l] = (uint32_t)src[l * lanes];
+  fp_carry(x);
+}
+
+static __device__ __forceinline__ void load_fq12_rw(Fq12& f, const int32_t* src, size_t lanes) {
+#pragma unroll 1
+  for (int c = 0; c < 12; ++c) load_fp_rw(f.c[c], src + c * NL * lanes, lanes);
+}
+
+// The w-NAF table entry of digit d (odd, |d| <= 7) into f: row |d| >> 1 of
+// the scratch table ``tab`` [rows, 12, 21, lanes] (``tab`` points at this
+// lane's column of row 0), conjugated when d < 0 (slots 1, 3, 5 negated as
+// 2p - x). The digit is the same in every lane: a uniform branch.
+static __device__ __noinline__ void fq12_signed_entry(const int32_t* tab, size_t lanes, int d,
+                                                      Fq12& f) {
+  const int row = (d < 0 ? -d : d) >> 1;
+  load_fq12_rw(f, tab + (size_t)row * 12 * NL * lanes, lanes);
+  if (d < 0) {
+#pragma unroll 1
+    for (int c = 2; c < 12; c += 4) {  // components of slots 1, 3, 5
+      f.c[c] = fp_neg(f.c[c]);
+      f.c[c + 1] = fp_neg(f.c[c + 1]);
+    }
+  }
 }
 
 constexpr unsigned DENSE = 0x3f;

@@ -1,7 +1,11 @@
-// Kernel A: dense Fq12 product, out = a * b, on KF12 tensors [12, 21, lanes].
+// Kernel A: Fq12 product, out = a * b, on KF12 tensors [12, 21, lanes], dense
+// or sparse: only the slots of b named in the 6-bit mask ``present`` are read
+// (0x3f dense; 0x19 and 0x2c the tangent and chord line shapes 034 and 235).
 //
-// Replaces pairing_tpu/ops/fq12_kernels.py:_pallas_mul (dense pattern,
-// pallas_call at :275, core _mul_core_v3), reached through klayout.kmul.
+// Replaces pairing_tpu/ops/fq12_kernels.py:_pallas_mul (pallas_call at :275),
+// both patterns: dense (core _mul_core_v3), reached through klayout.kmul, and
+// sparse (core _sparse_core_v2), reached through klayout.kmul_sparse. The
+// sparse mode issues 72 of the 144 Fq products for a three-slot line.
 // On the TPU it runs on (8, 128) tiles padded to 1024 lanes; here each
 // thread owns one lane and the grid masks the ragged edge itself.
 //
@@ -21,24 +25,31 @@ namespace pt {
 
 __global__ void __launch_bounds__(BLOCK)
 k_fq12_mul(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-           int32_t* __restrict__ out, int lanes) {
+           unsigned present, int32_t* __restrict__ out, int lanes) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   const size_t n = (size_t)lanes;
   Fq12 x, y, z;
   load_fq12(x, a + lane, n);
-  load_fq12(y, b + lane, n);
-  fq12_mul(x, y, DENSE, z);
+#pragma unroll 1
+  for (int i = 0; i < 6; ++i) {  // absent slots of b are never read
+    if ((present >> i) & 1u) {
+      load_fp(y.c[2 * i], b + 2 * i * NL * n + lane, n);
+      load_fp(y.c[2 * i + 1], b + (2 * i + 1) * NL * n + lane, n);
+    }
+  }
+  fq12_mul(x, y, present, z);
   store_fq12(z, out + lane, n);
 }
 
 }  // namespace pt
 
-extern "C" int pt_fq12_mul(const int32_t* a, const int32_t* b, int32_t* out,
+extern "C" int pt_fq12_mul(const int32_t* a, const int32_t* b, int present, int32_t* out,
                            int lanes, void* stream) {
   if (lanes > 0) {
     const int blocks = (lanes + pt::BLOCK - 1) / pt::BLOCK;
-    pt::k_fq12_mul<<<blocks, pt::BLOCK, 0, (cudaStream_t)stream>>>(a, b, out, lanes);
+    pt::k_fq12_mul<<<blocks, pt::BLOCK, 0, (cudaStream_t)stream>>>(
+        a, b, (unsigned)present & pt::DENSE, out, lanes);
   }
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry points: name -> argument types. Each returns cudaGetLastError().
 ENTRY_POINTS = {
-    "pt_fq12_mul": (_P, _P, _P, _I, _P),
+    "pt_fq12_mul": (_P, _P, _I, _P, _I, _P),
+    "pt_fq12_sq": (_P, _P, _I, _P),
     "pt_fq12_cyc_sq": (_P, _P, _I, _P),
     "pt_miller_f": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _P),
     "pt_pow_ladder_stream": (_P, _P, _I, _P, _I, _P),
@@ -51,6 +52,9 @@ ENTRY_POINTS = {
     "pt_lines": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P),
     "pt_exp_bits": (_P, _P, _I, _P, _I, _P),
     "pt_affine_export": (_P, _P, _I, _P, _I, _P),
+    "pt_pow_ladder": (_P, _P, _P, _I, _P, _I, _P),
+    "pt_pow_ladder_w4": (_P, _P, _I, _P, _P, _I, _P),
+    "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P),
 }
 
 

@@ -38,14 +38,18 @@ class Kernel:
         self.launches += 1
 
 
-#: Every kernel of the port, by name; the wrappers own one each. Kernel C's
-#: modes share one entry point but count apart: ``miller_f`` is one pair per
-#: product without collection, ``miller_f_multi`` several pairs per product,
+#: Every kernel of the port, by name; the wrappers own one each. Modes of one
+#: kernel share its entry point but count apart: kernel A's ``fq12_mul`` is
+#: the dense product, ``fq12_mul_sparse`` the product by a line (some slots of
+#: b absent); kernel C's ``miller_f`` is one pair per product without
+#: collection, ``miller_f_multi`` several pairs per product,
 #: ``miller_f_collect`` any launch that writes the per-step accumulator.
 KERNELS = {
     name: Kernel(name, entry)
     for name, entry in (
         ("fq12_mul", "pt_fq12_mul"),
+        ("fq12_mul_sparse", "pt_fq12_mul"),
+        ("fq12_sq", "pt_fq12_sq"),
         ("fq12_cyc_sq", "pt_fq12_cyc_sq"),
         ("miller_f", "pt_miller_f"),
         ("miller_f_multi", "pt_miller_f"),
@@ -60,6 +64,9 @@ KERNELS = {
         ("lines", "pt_lines"),
         ("exp_bits", "pt_exp_bits"),
         ("affine_export", "pt_affine_export"),
+        ("pow_ladder", "pt_pow_ladder"),
+        ("pow_ladder_w4", "pt_pow_ladder_w4"),
+        ("hard_chain", "pt_hard_chain"),
     )
 }
 
@@ -96,3 +103,31 @@ def check_operand(t: torch.Tensor, name: str, lead: Sequence[int], lanes: int) -
         raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def fq12_mul(a, b):
+    """Dense Fq12 product of two Fq12 values (any batch shape) on kernel A:
+    one conversion to the kernel layout each way."""
+    from .fq12_kernels import fq12_mul as kmul
+    from .fq12_kernels import from_kernel_layout, to_kernel_layout
+
+    a_arr, bs = to_kernel_layout(a)
+    b_arr, _ = to_kernel_layout(b)
+    return from_kernel_layout(kmul(a_arr, b_arr), bs)
+
+
+def fq12_mul_sparse(a, slots: dict):
+    """a times the sparse Fq12 whose nonzero slots are ``slots`` {slot: Fp2}
+    (a line: slots (0, 3, 4) or (2, 3, 5)), on kernel A's sparse mode. The
+    absent slots of the kernel operand are zero and never read."""
+    from ..fields import fp2 as F2
+    from ..fields.fp12 import Fq12
+    from .fq12_kernels import fq12_mul_sparse as kmul_sparse
+    from .fq12_kernels import from_kernel_layout, to_kernel_layout
+
+    a_arr, bs = to_kernel_layout(a)
+    some = next(iter(slots.values())).c0.limbs
+    zero = F2.zero(tuple(some.shape[:-1]), some.device)
+    b = Fq12(tuple(slots.get(i, zero) for i in range(6)))
+    b_arr, _ = to_kernel_layout(b)
+    return from_kernel_layout(kmul_sparse(a_arr, tuple(slots), b_arr), bs)

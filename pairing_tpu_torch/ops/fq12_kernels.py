@@ -1,9 +1,10 @@
-"""Kernel A — dense Fq12 product on the batch-last kernel layout.
+"""Kernels A and K18 — Fq12 product (dense or by a line) and dense Fq12
+square on the batch-last kernel layout.
 
     KF12 = int32[12, NLIMBS, B]   (component 2*slot + {c0, c1}, batch last)
 
-The counterpart of ``pairing_tpu/ops/fq12_kernels.py``'s dense
-``_pallas_mul``. The TPU layout ``[12, NLIMBS, R, 128]`` padded to 1024
+The counterparts of ``pairing_tpu/ops/fq12_kernels.py``'s ``_pallas_mul``
+(dense and sparse patterns) and ``_pallas_sq``. The TPU layout ``[12, NLIMBS, R, 128]`` padded to 1024
 lanes is not inherited: the CUDA kernel runs one thread per lane and masks
 the ragged edge itself, so any B works. Values in KF12 are kept in the
 standard envelope: limbs settled (<= 2^13 + 1), values < 2p.
@@ -11,7 +12,7 @@ standard envelope: limbs settled (<= 2^13 + 1), values < 2p.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -136,6 +137,9 @@ def from_kernel_layout(arr: torch.Tensor, batch_shape: tuple) -> Fq12:
 # ---------------------------------------------------------------------------
 
 FQ12_MUL = dispatch.KERNELS["fq12_mul"]
+FQ12_MUL_SPARSE = dispatch.KERNELS["fq12_mul_sparse"]
+FQ12_SQ = dispatch.KERNELS["fq12_sq"]
+DENSE = 0x3F  # kernel A's slot mask: every slot of b present
 
 
 def fq12_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -151,5 +155,55 @@ def fq12_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dispatch.check_operand(a, "a", (12,), lanes)
     dispatch.check_operand(b, "b", (12,), lanes)
     out = torch.empty_like(a)
-    FQ12_MUL(a, b, out, lanes)
+    FQ12_MUL(a, b, DENSE, out, lanes)
+    return out
+
+
+def _present_mask(present: Sequence[int]) -> int:
+    slots = sorted(set(int(j) for j in present))
+    if not slots or len(slots) != len(present) or slots[0] < 0 or slots[-1] > 5:
+        raise ValueError(f"present must name distinct slots in 0..5, got {tuple(present)}")
+    return sum(1 << j for j in slots)
+
+
+def fq12_mul_sparse_plain(a: torch.Tensor, present: Sequence[int], b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel A's sparse mode."""
+    bv = kf12_view(b)
+    return kf12_from(F12.fq12_mul_sparse(kf12_view(a), {int(j): bv.s[int(j)] for j in present}))
+
+
+def fq12_mul_sparse(a: torch.Tensor, present: Sequence[int], b: torch.Tensor) -> torch.Tensor:
+    """a times the sparse b whose nonzero slots are ``present`` (the line
+    shapes (0, 3, 4) and (2, 3, 5), or any other); b is KF12 and its other
+    slots are never read. KF12 x KF12 -> KF12."""
+    mask = _present_mask(present)
+    if not dispatch.on_cuda(a, b):
+        return fq12_mul_sparse_plain(a, present, b)
+    lanes = a.shape[-1]
+    dispatch.check_operand(a, "a", (12,), lanes)
+    dispatch.check_operand(b, "b", (12,), lanes)
+    out = torch.empty_like(a)
+    FQ12_MUL_SPARSE(a, b, mask, out, lanes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel K18: dense square
+# ---------------------------------------------------------------------------
+
+
+def fq12_sq_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel K18."""
+    return kf12_from(F12.fq12_sq(kf12_view(a)))
+
+
+def fq12_sq(a: torch.Tensor) -> torch.Tensor:
+    """Dense Fq12 square (any element, not only the cyclotomic subgroup),
+    KF12 -> KF12."""
+    if not dispatch.on_cuda(a):
+        return fq12_sq_plain(a)
+    lanes = a.shape[-1]
+    dispatch.check_operand(a, "a", (12,), lanes)
+    out = torch.empty_like(a)
+    FQ12_SQ(a, out, lanes)
     return out

@@ -1,17 +1,20 @@
-"""Kernels C, D and K12 — the fused Miller f-accumulation, the streamed
-windowed x-power ladder and the witness bit ladder, on the batch-last kernel
-layout.
+"""Kernels C, D, K12, K15, K16 and K17 — the fused Miller f-accumulation,
+the x-power ladders, the witness bit ladder and the fused hard-part chain,
+on the batch-last kernel layout.
 
 Counterparts of ``pairing_tpu/ops/fused_kernels.py``'s ``miller_f_pallas``
 (any number of pairs per product, optional per-step collection),
-``pow_ladder_stream_pallas`` with its host side ``pow_x_streamed``, and
-``exp_bits_ladder_pallas``. Each kernel loops over its steps inside one
-launch and keeps the Fq12 accumulator in the thread; the plain versions
-below run the same schedule with the field library.
+``pow_ladder_stream_pallas`` with its host side ``pow_x_streamed`` (D),
+``exp_bits_ladder_pallas`` (K12), ``hard_chain_pallas`` (K15),
+``pow_ladder_pallas`` (K16, plain NAF) and ``pow_ladder_w4_pallas`` (K17, w4
+NAF with the table built in the kernel). Each kernel loops over its steps
+inside one launch and keeps the Fq12 accumulator in the thread; the plain
+versions below run the same schedule with the field library.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -21,7 +24,7 @@ from ..fields import fp as F
 from ..fields import fp12 as F12
 from ..fields.fp import Fp
 from ..fields.fp2 import Fp2
-from ..utils.bn254 import BN_X, P, get_wnaf
+from ..utils.bn254 import BN_X, BN_X_NAF, P, get_wnaf
 from . import dispatch
 from . import klayout as KL
 from .fq12_kernels import kf12_from, kf12_view
@@ -31,6 +34,9 @@ MILLER_F_MULTI = dispatch.KERNELS["miller_f_multi"]
 MILLER_F_COLLECT = dispatch.KERNELS["miller_f_collect"]
 POW_LADDER_STREAM = dispatch.KERNELS["pow_ladder_stream"]
 EXP_BITS = dispatch.KERNELS["exp_bits"]
+POW_LADDER = dispatch.KERNELS["pow_ladder"]
+POW_LADDER_W4 = dispatch.KERNELS["pow_ladder_w4"]
+HARD_CHAIN = dispatch.KERNELS["hard_chain"]
 
 # ---------------------------------------------------------------------------
 # Kernel C: Miller f-accumulation
@@ -245,3 +251,186 @@ def exp_bits_ladder(x: torch.Tensor, bits):
     rows = torch.empty((len(bits),) + tuple(x.shape), dtype=torch.int32, device=x.device)
     EXP_BITS(x, torch.as_tensor(bits, device=x.device), len(bits), rows, lanes)
     return rows[-1], rows
+
+
+# ---------------------------------------------------------------------------
+# Kernel K16: plain-NAF cyclotomic ladder
+# ---------------------------------------------------------------------------
+
+#: MSB-first BN_X NAF digits with the leading 1 consumed by ladder init.
+BN_X_LADDER_DIGITS = np.asarray(list(reversed(BN_X_NAF))[1:], np.int32)
+
+
+def pow_ladder_plain(m: torch.Tensor, mc: torch.Tensor, digits) -> torch.Tensor:
+    """Plain PyTorch version of kernel K16."""
+    mv, mcv = kf12_view(m), kf12_view(mc)
+    f = mv
+    for d in (int(x) for x in digits):
+        f = F12.fq12_cyclotomic_sq(f)
+        if d != 0:
+            f = F12.fq12_cap(F12.fq12_mul(f, mv if d > 0 else mcv))
+    return kf12_from(f)
+
+
+def pow_ladder(m: torch.Tensor, mc: torch.Tensor, digits) -> torch.Tensor:
+    """m^e on the cyclotomic subgroup, e given by its MSB-first NAF
+    ``digits`` after the leading 1 (``BN_X_LADDER_DIGITS``): start at m, then
+    per digit square and multiply by m (+1), ``mc`` = conj(m) (-1) or nothing
+    (0). KF12 in and out."""
+    digits = np.asarray(digits, np.int32)
+    if digits.ndim != 1 or not np.isin(digits, (-1, 0, 1)).all():
+        raise ValueError("digits must be a vector of NAF digits -1, 0, 1")
+    if not dispatch.on_cuda(m, mc):
+        return pow_ladder_plain(m, mc, digits)
+    lanes = m.shape[-1]
+    dispatch.check_operand(m, "m", (12,), lanes)
+    dispatch.check_operand(mc, "mc", (12,), lanes)
+    out = torch.empty_like(m)
+    POW_LADDER(m, mc, torch.as_tensor(digits, device=m.device), len(digits), out, lanes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel K17: w4 ladder with the table built in the kernel
+# ---------------------------------------------------------------------------
+
+
+def _check_w4_digits(digits) -> np.ndarray:
+    digits = np.asarray(digits, np.int32)
+    if digits.ndim != 1 or len(digits) == 0 or digits[0] <= 0:
+        raise ValueError("digits must be a non-empty vector with a positive top digit")
+    if not np.isin(digits, (-7, -5, -3, -1, 0, 1, 3, 5, 7)).all():
+        raise ValueError("w4 NAF digits are 0 or odd with |d| <= 7")
+    return digits
+
+
+def pow_ladder_w4_plain(m: torch.Tensor, digits) -> torch.Tensor:
+    """Plain PyTorch version of kernel K17."""
+    mv = kf12_view(m)
+    m2 = F12.fq12_cyclotomic_sq(mv)
+    tab = [mv]
+    for _ in range(3):
+        tab.append(F12.fq12_cap(F12.fq12_mul(m2, tab[-1])))
+
+    def entry(d):
+        e = tab[abs(d) >> 1]
+        return F12.fq12_cap(F12.conjugate(e)) if d < 0 else e
+
+    digits = [int(x) for x in digits]
+    f = entry(digits[0])
+    for d in digits[1:]:
+        f = F12.fq12_cyclotomic_sq(f)
+        if d != 0:
+            f = F12.fq12_cap(F12.fq12_mul(f, entry(d)))
+    return kf12_from(f)
+
+
+def pow_ladder_w4(m: torch.Tensor, digits=BN_X_W4_DIGITS) -> torch.Tensor:
+    """m^e on the cyclotomic subgroup for the MSB-first w = 4 NAF ``digits``
+    of e (``BN_X_W4_DIGITS``), one launch: the kernel builds the table {m,
+    m^3, m^5, m^7}, starts at the top digit's entry and then squares per
+    digit, multiplying by the entry of each nonzero digit, conjugated when
+    it is negative. KF12 in and out."""
+    digits = _check_w4_digits(digits)
+    if not dispatch.on_cuda(m):
+        return pow_ladder_w4_plain(m, digits)
+    lanes = m.shape[-1]
+    dispatch.check_operand(m, "m", (12,), lanes)
+    tab = torch.empty((4,) + tuple(m.shape), dtype=torch.int32, device=m.device)
+    out = torch.empty_like(m)
+    POW_LADDER_W4(m, torch.as_tensor(digits, device=m.device), len(digits), tab, out, lanes)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel K15: the fused hard-part chain, an Fq12 register program
+# ---------------------------------------------------------------------------
+
+OPC_MUL, OPC_CYC, OPC_CONJ, OPC_F1, OPC_F2, OPC_F3 = range(6)
+
+#: (op, dst, a, b) schedule of the hard-part chain; dst never aliases a
+#: MUL/CYC source (CONJ/FROB are slotwise and alias-safe). Registers r0..r3
+#: preload m, mx, mx2, mx3; the result is in r5.
+HARD_CHAIN_PROG = (
+    (OPC_F1, 4, 0, 0),    # mp = frob1(m)
+    (OPC_F2, 5, 0, 0),    # mp2
+    (OPC_MUL, 6, 4, 5),   # mp*mp2
+    (OPC_F3, 4, 0, 0),    # mp3
+    (OPC_MUL, 5, 6, 4),   # y0  (held to the end)
+    (OPC_F1, 4, 3, 0),    # mx3p
+    (OPC_MUL, 6, 3, 4),   # mx3*mx3p
+    (OPC_CONJ, 6, 6, 0),  # y6
+    (OPC_CYC, 3, 6, 0),   # sq6 = y6^2        (mx3 dead)
+    (OPC_F1, 4, 2, 0),    # mx2p
+    (OPC_MUL, 6, 1, 4),   # mx*mx2p
+    (OPC_CONJ, 6, 6, 0),  # y4
+    (OPC_MUL, 4, 3, 6),   # t0a = sq6*y4
+    (OPC_CONJ, 6, 2, 0),  # y5
+    (OPC_MUL, 3, 4, 6),   # t0 = t0a*y5
+    (OPC_F1, 4, 1, 0),    # mxp               (mx dead)
+    (OPC_CONJ, 4, 4, 0),  # y3
+    (OPC_MUL, 7, 4, 6),   # t1a = y3*y5
+    (OPC_MUL, 4, 7, 3),   # t1 = t1a*t0
+    (OPC_F2, 6, 2, 0),    # y2                (mx2 dead)
+    (OPC_MUL, 7, 6, 3),   # t0b = y2*t0
+    (OPC_CYC, 3, 4, 0),   # t1b = t1^2
+    (OPC_MUL, 6, 3, 7),   # t1c = t1b*t0b
+    (OPC_CYC, 3, 6, 0),   # t1d = t1c^2
+    (OPC_CONJ, 6, 0, 0),  # y1 = conj(m)      (m dead)
+    (OPC_MUL, 7, 3, 6),   # ta = t1d*y1
+    (OPC_MUL, 4, 3, 5),   # tb = t1d*y0
+    (OPC_CYC, 3, 7, 0),   # ta2 = ta^2
+    (OPC_MUL, 5, 3, 4),   # final = ta2*tb
+)
+HARD_CHAIN_NREG = 8
+HARD_CHAIN_OUT = 5
+
+#: The slot maps of opcodes OPC_CONJ.. OPC_F3, as kernel E's slot programs.
+SLOT_POWERS = (None, 1, 2, 3)
+
+
+def hard_chain_plain(m, mx, mx2, mx3) -> torch.Tensor:
+    """Plain PyTorch version of kernel K15: HARD_CHAIN_PROG interpreted on a
+    register file [HARD_CHAIN_NREG, 12, NLIMBS, B] with the field library."""
+    regs = torch.zeros((HARD_CHAIN_NREG,) + tuple(m.shape), dtype=torch.int32, device=m.device)
+    for r, x in enumerate((m, mx, mx2, mx3)):
+        regs[r] = x
+    for op, dst, a, b in HARD_CHAIN_PROG:
+        x = kf12_view(regs[a])
+        if op == OPC_MUL:
+            y = F12.fq12_mul(x, kf12_view(regs[b]))
+        elif op == OPC_CYC:
+            y = F12.fq12_cyclotomic_sq(x)
+        elif op == OPC_CONJ:
+            y = F12.conjugate(x)
+        else:
+            y = F12.frobenius_map(x, SLOT_POWERS[op - OPC_CONJ])
+        regs[dst] = kf12_from(y)
+    return regs[HARD_CHAIN_OUT].clone()
+
+
+@lru_cache(maxsize=None)
+def _hard_chain_consts(device: torch.device):
+    prog = torch.as_tensor(np.asarray(HARD_CHAIN_PROG, np.int32), device=device)
+    progs = [KL._slot_prog(pw) for pw in SLOT_POWERS]
+    ops = torch.as_tensor(np.stack([p[0] for p in progs]), device=device)
+    consts = torch.as_tensor(np.stack([p[1] for p in progs]), device=device)
+    return prog, ops, consts
+
+
+def hard_chain(m, mx, mx2, mx3) -> torch.Tensor:
+    """The hard-part chain (final_exp_native.rs:130-169) given m and its
+    three x-powers, as one launch; value-identical to the 29-launch chain of
+    ``pairing.final_exp.hard_part_chain_k``. Cyclotomic-subgroup inputs,
+    KF12 in and out."""
+    if not dispatch.on_cuda(m, mx, mx2, mx3):
+        return hard_chain_plain(m, mx, mx2, mx3)
+    lanes = m.shape[-1]
+    for name, x in (("m", m), ("mx", mx), ("mx2", mx2), ("mx3", mx3)):
+        dispatch.check_operand(x, name, (12,), lanes)
+    prog, ops, consts = _hard_chain_consts(m.device)
+    regs = torch.empty((HARD_CHAIN_NREG,) + tuple(m.shape), dtype=torch.int32, device=m.device)
+    out = torch.empty_like(m)
+    HARD_CHAIN(m, mx, mx2, mx3, prog, len(HARD_CHAIN_PROG), ops, consts, regs, HARD_CHAIN_OUT,
+               out, lanes)
+    return out

@@ -4,6 +4,9 @@ The counterpart of ``pairing_tpu/ops/klayout.py``; the whole final
 exponentiation stays in this layout:
 
   * kmul     — dense product (kernel A, ``fq12_kernels.fq12_mul``)
+  * kmul_sparse — product by a sparse operand (kernel A's sparse mode,
+               ``fq12_kernels.fq12_mul_sparse``)
+  * ksq      — dense square (kernel K18, ``fq12_kernels.fq12_sq``)
   * kcyc_sq  — Granger-Scott cyclotomic square (kernel B)
   * kconj    — conjugate (negate odd w-powers; final_exp_native.rs:171-181)
   * kfrob    — Frobenius p, p^2, p^3 (final_exp_native.rs:17-54)
@@ -26,6 +29,8 @@ from ..utils.bn254 import P, frob_coeff_pow
 from . import dispatch
 from .fp_kernels import exponent_bits
 from .fq12_kernels import fq12_mul as kmul  # noqa: F401  (re-export)
+from .fq12_kernels import fq12_mul_sparse as kmul_sparse  # noqa: F401  (re-export)
+from .fq12_kernels import fq12_sq as ksq  # noqa: F401  (re-export)
 from .fq12_kernels import kf12_from, kf12_view
 
 FQ12_CYC_SQ = dispatch.KERNELS["fq12_cyc_sq"]

@@ -70,11 +70,13 @@ def fq12_to_leaves(a: Fq12) -> list:
 
 
 def map_limbs(a, fn):
-    """A G1 or G2 batch with ``fn`` applied to each coordinate's limb
+    """A G1, G2 or Fq12 batch with ``fn`` applied to each coordinate's limb
     tensor ``[..., 21]`` (static envelopes kept): reshape, tile, slice."""
     def fp(x: Fp) -> Fp:
         return Fp(fn(x.limbs), x.bound, x.limb_bound)
 
+    if isinstance(a, Fq12):
+        return Fq12(tuple(Fp2(fp(s.c0), fp(s.c1)) for s in a.s))
     if isinstance(a, G1):
         return G1(fp(a.x), fp(a.y))
     return G2(Fp2(fp(a.x.c0), fp(a.x.c1)), Fp2(fp(a.y.c0), fp(a.y.c1)))

@@ -3,6 +3,7 @@
 
     python3 phase_profile_torch.py [--entry pairing|multi_pairing|pairing_witness]
                                    [--batch 16384] [--pairs 4] [--unique 16] [--reps 3]
+                                   [--fused-chain]
 
 Times whole calls of the entry point between device synchronisations:
 ``pairing`` over ``--batch`` lanes, ``multi_pairing`` over ``--batch``
@@ -15,8 +16,11 @@ and the witness collection open around their phases (``miller_loop.*``,
 call's Chrome trace, its host span and the device time of the kernels
 launched inside it. Device busy time is summed
 over kernel events of that same profiled call, so the idle share pairs busy
-and wall time of one run. Prints the card's name and power limit, then one
-JSON line. Needs a CUDA device; the correctness checks live in
+and wall time of one run. ``--fused-chain`` sets PAIRING_FUSED_CHAIN, so
+every final exponentiation runs its hard-part chain as one launch of kernel
+K15 instead of 29 launches of A, B and E; the ``final_exp.hard_chain``
+range then holds that one kernel. Prints the card's name and power limit,
+then one JSON line. Needs a CUDA device; the correctness checks live in
 chip_smoke.py.
 """
 
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -104,6 +109,8 @@ def main() -> int:
     ap.add_argument("--unique", type=int, default=16)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=5)
+    ap.add_argument("--fused-chain", action="store_true",
+                    help="run the hard-part chain as one kernel (PAIRING_FUSED_CHAIN)")
     ap.add_argument("--trace", type=Path,
                     default=Path(__file__).resolve().parent / "build" / "phase_profile_trace.json",
                     help="where the profiled call's Chrome trace is written")
@@ -111,6 +118,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("phase_profile_torch: needs a CUDA device", file=sys.stderr)
         return 1
+    if args.fused_chain:
+        os.environ["PAIRING_FUSED_CHAIN"] = "1"
 
     import pairing_tpu_torch as pt
     from pairing_tpu_torch import witness as W
@@ -148,6 +157,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"entry": args.entry, "batch": args.batch,
                       "pairs": args.pairs if args.entry == "multi_pairing" else 1,
+                      "fused_chain": args.fused_chain,
                       "warmup_s": warm, "call_s": whole, "profile": prof}))
     return 0
 

@@ -273,3 +273,93 @@ def test_kernel_wrapper_rejects_bad_operands(gen):
         FK.fq12_mul(a, a.long())
     with pytest.raises(ValueError):
         FK.fq12_mul(a, a.cpu())
+
+
+@pytest.mark.parametrize("lanes", [1, 129, 2048])
+def test_fq12_sq_kernel_matches_plain(gen, lanes):
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+
+    a = rand_kf12((12,), lanes, gen)
+    before = FK.FQ12_SQ.launches
+    assert_same(FK.fq12_sq(a), FK.fq12_sq_plain(a))
+    assert FK.FQ12_SQ.launches == before + 1
+
+
+@pytest.mark.parametrize("lanes", [1, 129, 2048])
+@pytest.mark.parametrize("present", [(0, 3, 4), (2, 3, 5), (1,)])
+def test_fq12_mul_sparse_kernel_matches_plain(gen, lanes, present):
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+
+    a, b = rand_kf12((12,), lanes, gen), rand_kf12((12,), lanes, gen)
+    dense, before = FK.FQ12_MUL.launches, FK.FQ12_MUL_SPARSE.launches
+    got = FK.fq12_mul_sparse(a, present, b)
+    assert FK.FQ12_MUL_SPARSE.launches == before + 1 and FK.FQ12_MUL.launches == dense
+    assert_same(got, FK.fq12_mul_sparse_plain(a, present, b))
+
+
+@pytest.mark.parametrize("lanes", [33, 1024])
+def test_pow_ladders_k16_k17_match_plain_and_d(gen, lanes):
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.ops import klayout as KL
+    from pairing_tpu_torch.pairing.final_exp import easy_part_k
+
+    m = easy_part_k(rand_kf12((12,), lanes, gen))
+    mc = KL.kconj(m)
+    naf = FU.pow_ladder(m, mc, FU.BN_X_LADDER_DIGITS)
+    w4 = FU.pow_ladder_w4(m, FU.BN_X_W4_DIGITS)
+    assert_same(naf, FU.pow_ladder_plain(m, mc, FU.BN_X_LADDER_DIGITS))
+    assert_same(w4, FU.pow_ladder_w4_plain(m, FU.BN_X_W4_DIGITS))
+    assert_same((naf, w4), (FU.pow_x_streamed(m),) * 2)  # three designs, one value
+
+
+@pytest.mark.parametrize("lanes", [33, 1024])
+def test_hard_chain_kernel_matches_plain_and_unfused(gen, lanes):
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.pairing.final_exp import easy_part_k, hard_part_chain_k
+
+    xs = [easy_part_k(rand_kf12((12,), lanes, gen)) for _ in range(4)]
+    before = FU.HARD_CHAIN.launches
+    got = hard_part_chain_k(*xs, fused=True)
+    assert FU.HARD_CHAIN.launches == before + 1
+    assert_same(got, FU.hard_chain_plain(*xs))
+    assert_same(got, hard_part_chain_k(*xs, fused=False))
+
+
+def test_fused_chain_pairing_and_split_final_exp_on_card(gen, monkeypatch):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.pairing import final_exp as FE
+
+    g1s, g2s = _seeded_points(3, 14)
+    p, q = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
+    want = [o.pairing(a, b) for a, b in zip(g1s, g2s)]
+    monkeypatch.setenv("PAIRING_FUSED_CHAIN", "1")
+    dispatch.reset_launch_counts()
+    assert pt.fq12_to_int_coeffs(pt.pairing(p, q)) == want
+    assert dispatch.launch_counts()["hard_chain"] == 1
+    monkeypatch.delenv("PAIRING_FUSED_CHAIN")
+    f = pt.miller_loop(q, p)
+    dispatch.reset_launch_counts()
+    out = FE.hard_part(FE.easy_part(f))
+    counts = dispatch.launch_counts()
+    assert counts["pow_ladder_w4"] == 3 and counts["fq12_inv"] == 1 and counts["hard_chain"] == 0
+    assert pt.fq12_to_int_coeffs(out) == want
+
+
+def test_fq12_pow_on_card_matches_oracle(gen):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.pairing.final_exp import fq12_pow
+    from pairing_tpu_torch.utils import bn254 as c
+
+    rng = np.random.default_rng(15)
+    coeffs = [[int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)]
+              for _ in range(3)]
+    a = pt.fq12_from_int_coeffs(coeffs, "cuda")
+    for e in (0b101101110101, c.BN_X):
+        dispatch.reset_launch_counts()
+        got = pt.fq12_to_int_coeffs(fq12_pow(a, e))
+        assert dispatch.launch_counts()["fq12_sq"] > 0
+        assert got == [o.pow_fq12(x, e) for x in coeffs]

@@ -8,11 +8,18 @@
 * Phase D with K = 2 pairs per product and per-step collection: every
   collected row against the oracle's shared-square recurrence.
 * The x-power ladder: ``pow_x_streamed`` on CPU tensors (kernels A, B and
-  D all take their plain versions) against ``final_exp.pow_x_cyclotomic``.
+  D all take their plain versions) against ``final_exp.pow_x_cyclotomic``
+  through ``tests/data/torch_final_exp_fixture.npz``.
 * The witness bit ladder (K12): a 5-bit exponent row by row, and the full
   ``BN_X_BITS_MSB`` on one lane, against the oracle.
+* The plain-NAF ladder (K16) and the w4 ladder with its table in the kernel
+  (K17) over short digit vectors with negative digits, against the oracle;
+  their digit checks; the ladder digits and the hard-chain program (K15)
+  against the JAX package's constants.
 Exact (canonical) comparison; every output in the kernel envelope.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,18 +29,18 @@ from pairing_tpu.fields import fp as JF
 from pairing_tpu.fields import fp2 as JF2
 from pairing_tpu.fields import fp12 as JF12
 from pairing_tpu.ops import fused_kernels as JFU
-from pairing_tpu.pairing import final_exp as JFE
 from pairing_tpu.pairing import miller_loop as JML
 from pairing_tpu_torch.fields import fp as TF
 from pairing_tpu_torch.fields import fp12 as TF12
 from pairing_tpu_torch.ops import fq12_kernels as FK
 from pairing_tpu_torch.ops import fused_kernels as FU
+from pairing_tpu_torch.ops import klayout as KL
 from pairing_tpu_torch.oracle import native as o
 from pairing_tpu_torch.utils import bn254 as c
-from pairing_tpu_torch.utils import interop
 
 torch.set_num_threads(2)
 
+DATA = Path(__file__).resolve().parent / "data"
 B = 3
 RINV = pow(1 << 273, -1, c.P)
 
@@ -94,16 +101,14 @@ def test_phase_d_plain_matches_jax_scan():
 
 
 def test_pow_x_streamed_plain_matches_jax():
-    rng = np.random.default_rng(302)
-    coeffs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
-              for _ in range(2)]
-    j = JF12.fq12_from_int_coeffs(coeffs)
-    leaves = []
-    for s in j.s:
-        leaves += [np.asarray(s.c0.limbs), np.asarray(s.c1.limbs)]
-    arr, _ = FK.to_kernel_layout(interop.fq12_from_leaves(leaves, "cpu"))
+    """Against the JAX package's pow_x_cyclotomic on two easy-part outputs,
+    as ``tests/data/make_torch_final_exp_fixtures.py`` recorded it (no JAX
+    compile here)."""
+    data = np.load(DATA / "torch_final_exp_fixture.npz")
+    coeffs = TF12.fq12_limbs_to_int_coeffs(data["easy_part"][2:])
+    arr, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(coeffs, "cpu"))
     got = port_ints(FU.pow_x_streamed(arr))
-    assert got == j12_ints(JFE.pow_x_cyclotomic(j))
+    assert got == TF12.fq12_limbs_to_int_coeffs(data["pow_x_cyclotomic"][2:])
     assert got == [o.pow_fq12(x, c.BN_X) for x in coeffs]
 
 
@@ -207,3 +212,48 @@ def test_exp_bits_ladder_plain_full_bn_x_matches_oracle():
 def test_exp_bits_ladder_rejects_bad_bits(bits):
     with pytest.raises(ValueError):
         FU.exp_bits_ladder(torch.zeros((12, 21, 1), dtype=torch.int32), bits)
+
+
+def test_ladder_and_chain_constants_match_jax():
+    assert FU.BN_X_LADDER_DIGITS.tolist() == JFU.BN_X_LADDER_DIGITS.tolist()
+    assert FU.HARD_CHAIN_PROG == JFU.HARD_CHAIN_PROG
+    assert (FU.HARD_CHAIN_NREG, FU.HARD_CHAIN_OUT) == (JFU.HARD_CHAIN_NREG, JFU.HARD_CHAIN_OUT)
+    assert (FU.OPC_MUL, FU.OPC_CYC, FU.OPC_CONJ, FU.OPC_F1, FU.OPC_F2, FU.OPC_F3) == (
+        JFU.OPC_MUL, JFU.OPC_CYC, JFU.OPC_CONJ, JFU.OPC_F1, JFU.OPC_F2, JFU.OPC_F3)
+
+
+def _digits_value(digits, start=0):
+    e = start
+    for d in digits:
+        e = 2 * e + int(d)
+    return e
+
+
+@pytest.mark.parametrize("ladder", ["naf", "w4"])
+def test_short_ladders_plain_match_oracle(ladder):
+    """K16 and K17 over short digit vectors with negative digits, on
+    cyclotomic-subgroup inputs (where conj(m) = m^-1)."""
+    rng = np.random.default_rng(306)
+    coeffs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+              for _ in range(2)]
+    m, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(coeffs, "cpu"))
+    if ladder == "naf":
+        digits = [0, -1, 1, 0, -1]
+        got, e = FU.pow_ladder(m, KL.kconj(m), digits), _digits_value(digits, 1)
+    else:
+        digits = [3, 0, -5, 0, 7, -1, 0, 1]
+        got, e = FU.pow_ladder_w4(m, digits), _digits_value(digits)
+    assert port_ints(got) == [o.pow_fq12(x, e) for x in coeffs]
+
+
+@pytest.mark.parametrize("ladder, digits", [
+    ("naf", [1, 2]), ("naf", [[1]]),
+    ("w4", []), ("w4", [0, 1]), ("w4", [-1, 1]), ("w4", [1, 2]), ("w4", [1, 9]),
+])
+def test_ladders_reject_bad_digits(ladder, digits):
+    m = torch.zeros((12, 21, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        if ladder == "naf":
+            FU.pow_ladder(m, m, digits)
+        else:
+            FU.pow_ladder_w4(m, digits)

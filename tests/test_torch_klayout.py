@@ -112,3 +112,26 @@ def test_kinv_matches_jax():
 
 def test_kmul_is_kernel_a():
     assert KL.kmul is FK.fq12_mul
+
+
+def test_kmul_sparse_and_ksq_are_kernel_wrappers():
+    assert KL.kmul_sparse is FK.fq12_mul_sparse
+    assert KL.ksq is FK.fq12_sq
+
+
+def test_fq12_level_product_and_inverse_match_oracle():
+    """``dispatch.fq12_mul`` (kernel A) and ``inv_kernels.fq12_inv`` (kernel
+    G) on public Fq12 values of batch shape (1, 2)."""
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.ops.inv_kernels import fq12_inv
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    rng = np.random.default_rng(230)
+    xs, ys = rand_coeffs(rng, 2), rand_coeffs(rng, 2)
+    shape = lambda limbs: limbs.reshape(1, 2, TF.NLIMBS)  # noqa: E731
+    x = map_limbs(TF12.fq12_from_int_coeffs(xs, "cpu"), shape)
+    y = map_limbs(TF12.fq12_from_int_coeffs(ys, "cpu"), shape)
+    prod, inv = dispatch.fq12_mul(x, y), fq12_inv(x)
+    assert prod.batch_shape == inv.batch_shape == (1, 2)
+    assert TF12.fq12_to_int_coeffs(prod) == [o.fq12_mul(a, b) for a, b in zip(xs, ys)]
+    assert TF12.fq12_to_int_coeffs(inv) == [o.fq12_inv(a) for a in xs]
