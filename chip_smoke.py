@@ -49,8 +49,10 @@ toolkit (nvcc). It
 
 Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
-the three ladder designs for m^BN_X side by side. Launch counts are set to 0
-just before each of the paths of steps 3-7 and read just after; every kernel
+the three ladder designs for m^BN_X side by side. Kernel D's entry in the
+JSON line also carries its registers, stack, spill and shared bytes per
+block from this build's ptxas report. Launch counts are set to 0 just
+before each of the paths of steps 3-7 and read just after; every kernel
 the path runs must have launched in it.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -62,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -257,7 +260,24 @@ def compare_kernel(name, kernel_fn, plain_fn, results, bound, imads, in_bytes, c
           flush=True)
 
 
-def kernel_phases(results, bound) -> None:
+def ptxas_entry(log: str, kernel: str) -> dict:
+    """Registers, stack, spill and static shared bytes of one kernel from
+    nvcc's -Xptxas -v report (the lines from its 'Compiling entry function'
+    to the next)."""
+    m = re.search(r"Compiling entry function '\w*%s\w*'" % kernel, log)
+    check(m is not None, f"ptxas report has no entry {kernel}")
+    block = log[m.end():].split("Compiling entry function")[0]
+    props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      block)
+    regs = re.search(r"Used (\d+) registers", block)
+    check(props is not None and regs is not None, f"ptxas report of {kernel} unreadable")
+    smem = re.search(r"(\d+) bytes smem", block)
+    stack, stores, loads = map(int, props.groups())
+    return {"registers": int(regs.group(1)), "stack_bytes": stack, "spill_store_bytes": stores,
+            "spill_load_bytes": loads, "shared_bytes_per_block": int(smem.group(1)) if smem else 0}
+
+
+def kernel_phases(results, bound, ptxas_log: str) -> None:
     from pairing_tpu_torch.ops import curve_kernels as CK
     from pairing_tpu_torch.ops import fp_kernels as FPK
     from pairing_tpu_torch.ops import fq12_kernels as FK
@@ -307,6 +327,11 @@ def kernel_phases(results, bound) -> None:
                    lambda: FU.pow_ladder_stream_plain(stream, digits, rows), results, bound,
                    B * ((len(digits) - 1) * CYC_SQ
                         + int(np.count_nonzero(digits[1:])) * FQ12_DENSE), nbytes((stream,)))
+    d = results["pow_ladder_stream"]
+    d.update(ptxas_entry(ptxas_log, "k_pow_ladder_stream"))
+    print(f"pow_ladder_stream: {d['registers']} registers, {d['stack_bytes']} B stack, spill "
+          f"stores {d['spill_store_bytes']} B, loads {d['spill_load_bytes']} B, "
+          f"{d['shared_bytes_per_block']} B shared per block (ptxas)", flush=True)
 
     powers = (None, 1, 2, 3)  # the conjugate and the three Frobenius maps
     n_const = sum(int(np.count_nonzero(KL._slot_prog(pw)[0] & KL.MUL_CONST)) for pw in powers)
@@ -777,7 +802,7 @@ def main() -> int:
             print("ptxas:", line.strip())
 
     results: dict = {}
-    kernel_phases(results, Bounds())
+    kernel_phases(results, Bounds(), info.ptxas)
     torch.cuda.empty_cache()
     g1s, g2s = seeded_pairs()
     p, q, canon, want = main_path(results, card, g1s, g2s)

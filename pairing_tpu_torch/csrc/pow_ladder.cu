@@ -9,42 +9,61 @@
 // Schedule row sched[t] = (digit != 0, row): step 0 loads stream[row] as the
 // start value; every later step squares (Granger-Scott) and, on a nonzero
 // digit, multiplies by stream[row]. On the TPU a scalar-prefetch grid spec
-// fetched the row of each step; here each thread reads stream[row] itself.
+// fetched the row of each step; here the lane's group stages stream[row] in
+// shared memory itself.
 //
-// Bound on the H100: integer multiply-adds (62 cyclotomic squares and about
-// 16 dense products per lane), against at most 8 rows of 1008 bytes per
-// lane read. f and one temporary stay in the thread's local memory for all
-// steps.
+// Bound on the H100: integer multiply-adds (62 cyclotomic squares and 13
+// dense products per lane for BN_X), against at most 8 rows of 1008 bytes
+// per lane read. Design (field_group.cuh): six threads per lane, five lanes
+// per warp, the lane's f and a scratch in shared memory, so that each
+// thread holds one Fq product's operands and accumulator in registers and
+// the SM keeps several warps per scheduler in flight to hide the latency
+// of the dependent multiply-adds. The digit schedule is the same for every
+// lane, so every branch on it is uniform.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "field_group.cuh"
 
 namespace pt {
 
-__global__ void __launch_bounds__(BLOCK)
+// Four warps a block: 20 lanes of 2020 shared bytes, 40,400 bytes, static
+// (under 48 KB). Two blocks (8 warps) per SM leave the registers uncapped
+// below 255: asking for three (12 warps) caps them at 168, and ptxas then
+// spills about 0.5 KB a thread.
+constexpr int D_WARPS = 4;
+constexpr int D_MIN_BLOCKS = 2;
+constexpr int D_THREADS = D_WARPS * 32;
+constexpr int D_LANES = D_WARPS * GROUP_LANES;  // lanes per block
+
+__global__ void __launch_bounds__(D_THREADS, D_MIN_BLOCKS)
 k_pow_ladder_stream(const int32_t* __restrict__ stream, const int32_t* __restrict__ sched,
                     int n_steps, int32_t* __restrict__ out, int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+  __shared__ uint32_t smem[D_LANES * GROUP_STRIDE];
+  const int warp = threadIdx.x >> 5, t32 = threadIdx.x & 31;
+  // Threads 30 and 31 of each warp belong to no lane and to no barrier's mask.
+  if (t32 >= GROUP * GROUP_LANES) return;
+  const int g = t32 / GROUP, s = t32 % GROUP;
+  const int lane = (blockIdx.x * D_WARPS + warp) * GROUP_LANES + g;
+  // A lane past the batch edge works on the last lane's data, reaches every
+  // barrier with its group and stores nothing.
+  const bool live = lane < lanes;
   const size_t n = (size_t)lanes;
+  const size_t col = live ? (size_t)lane : n - 1;
+  uint32_t* f = smem + (warp * GROUP_LANES + g) * GROUP_STRIDE;
+  uint32_t* scr = f + F12_WORDS;
   const size_t row_words = 12 * NL * n;
-  Fq12 f0, f1, y;
-  Fq12* f = &f0;
-  Fq12* g = &f1;
-  load_fq12(*f, stream + __ldg(sched + 1) * row_words + lane, n);
+  group_load_slot(f, stream + (size_t)__ldg(sched + 1) * row_words + col, n, s);
+  __syncwarp(GROUP_MASK);
 #pragma unroll 1
   for (int t = 1; t < n_steps; ++t) {
-    fq12_cyc_sq(*f, *g);
+    group_cyc_sq(f, scr, s);
     if (__ldg(sched + 2 * t) != 0) {
-      load_fq12(y, stream + __ldg(sched + 2 * t + 1) * row_words + lane, n);
-      fq12_mul(*g, y, DENSE, *f);
-    } else {
-      Fq12* tmp = f;
-      f = g;
-      g = tmp;
+      group_load_slot(scr, stream + (size_t)__ldg(sched + 2 * t + 1) * row_words + col, n, s);
+      __syncwarp(GROUP_MASK);
+      group_fq12_mul(f, scr, s);
     }
   }
-  store_fq12(*f, out + lane, n);
+  if (live) group_store_slot(f, out + lane, n, s);
 }
 
 }  // namespace pt
@@ -53,8 +72,8 @@ extern "C" int pt_pow_ladder_stream(const int32_t* stream, const int32_t* sched,
                                     int n_steps, int32_t* out, int lanes,
                                     void* cuda_stream) {
   if (lanes > 0) {
-    const int blocks = (lanes + pt::BLOCK - 1) / pt::BLOCK;
-    pt::k_pow_ladder_stream<<<blocks, pt::BLOCK, 0, (cudaStream_t)cuda_stream>>>(
+    const int blocks = (lanes + pt::D_LANES - 1) / pt::D_LANES;
+    pt::k_pow_ladder_stream<<<blocks, pt::D_THREADS, 0, (cudaStream_t)cuda_stream>>>(
         stream, sched, n_steps, out, lanes);
   }
   return (int)cudaGetLastError();

@@ -8,7 +8,8 @@ Counterparts of ``pairing_tpu/ops/fused_kernels.py``'s ``miller_f_pallas``
 ``exp_bits_ladder_pallas`` (K12), ``hard_chain_pallas`` (K15),
 ``pow_ladder_pallas`` (K16, plain NAF) and ``pow_ladder_w4_pallas`` (K17, w4
 NAF with the table built in the kernel). Each kernel loops over its steps
-inside one launch and keeps the Fq12 accumulator in the thread; the plain
+inside one launch and keeps the Fq12 accumulator on the chip: in the thread,
+or for D in shared memory, split over six threads per lane; the plain
 versions below run the same schedule with the field library.
 """
 
@@ -140,12 +141,12 @@ def miller_f(tg: torch.Tensor, ch: torch.Tensor, ep: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _wnaf_msb(e: int, w: int) -> np.ndarray:
+def wnaf_msb(e: int, w: int) -> np.ndarray:
     return np.asarray(list(reversed(get_wnaf(e, w))), np.int32)
 
 
 #: MSB-first BN_X w=4 NAF digits (top digit consumed by ladder init).
-BN_X_W4_DIGITS = _wnaf_msb(BN_X, 4)
+BN_X_W4_DIGITS = wnaf_msb(BN_X, 4)
 
 
 def pow_ladder_stream_plain(stream: torch.Tensor, digits, rows) -> torch.Tensor:
@@ -180,8 +181,9 @@ def pow_ladder_stream(stream: torch.Tensor, digits, rows) -> torch.Tensor:
     return out
 
 
-def pow_x_table(m_arr: torch.Tensor):
-    """Signed table of the BN_X w4 ladder for m: (stream, rows).
+def pow_x_table(m_arr: torch.Tensor, digits=BN_X_W4_DIGITS):
+    """Signed table of the w4 ladder over MSB-first ``digits`` (BN_X's by
+    default) for m: (stream, rows).
 
     The entries (m, m^3, m^5, m^7 and conjugates as needed) are built with
     kernels A and B; one stream row per DISTINCT signed digit, and
@@ -194,7 +196,7 @@ def pow_x_table(m_arr: torch.Tensor):
 
     rows_list, row_of_step, row_of = [], [], {}
     r = 0
-    for t, d in enumerate(int(x) for x in BN_X_W4_DIGITS):
+    for t, d in enumerate(int(x) for x in digits):
         if d != 0 or t == 0:
             if d not in row_of:
                 e = ent[abs(d)]

@@ -85,16 +85,25 @@ def test_miller_f_kernel_matches_plain(gen, lanes):
                 FU.miller_f_plain(tg, ch, ep, sched))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
-def test_pow_ladder_kernel_matches_plain(gen, lanes):
+#: chip_smoke.POW_E, whose w = 4 digits include a negative one.
+POW_E = 0b101101110101
+
+
+# Kernel D runs six threads per lane, five lanes per warp, 20 lanes per
+# block: the lane counts cut a warp's group and a block at the edge.
+@pytest.mark.parametrize("e", ["bn_x", POW_E])
+@pytest.mark.parametrize("lanes", [1, 4, 5, 6, 31, 33, 1029, 2048])
+def test_pow_ladder_kernel_matches_plain(gen, lanes, e):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing.final_exp import easy_part_k
 
     m = easy_part_k(rand_kf12((12,), lanes, gen))
-    stream, rows = FU.pow_x_table(m)
-    digits = FU.BN_X_W4_DIGITS
-    assert_same(FU.pow_ladder_stream(stream, digits, rows),
-                FU.pow_ladder_stream_plain(stream, digits, rows))
+    digits = FU.BN_X_W4_DIGITS if e == "bn_x" else FU.wnaf_msb(e, 4)
+    stream, rows = FU.pow_x_table(m, digits)
+    before = FU.POW_LADDER_STREAM.launches
+    got = FU.pow_ladder_stream(stream, digits, rows)
+    assert FU.POW_LADDER_STREAM.launches == before + 1
+    assert_same(got, FU.pow_ladder_stream_plain(stream, digits, rows))
 
 
 @pytest.mark.parametrize("lanes", [1, 129, 2048])

@@ -16,9 +16,13 @@
   (K17) over short digit vectors with negative digits, against the oracle;
   their digit checks; the ladder digits and the hard-chain program (K15)
   against the JAX package's constants.
+* Kernel D's six-thread split (``csrc/field_group.cuh``), modelled below:
+  each rank's products and reductions apart, assembled as the kernel does,
+  against ``fq12_mul`` / ``fq12_cyclotomic_sq`` and the oracle.
 Exact (canonical) comparison; every output in the kernel envelope.
 """
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +35,10 @@ from pairing_tpu.fields import fp12 as JF12
 from pairing_tpu.ops import fused_kernels as JFU
 from pairing_tpu.pairing import miller_loop as JML
 from pairing_tpu_torch.fields import fp as TF
+from pairing_tpu_torch.fields import fp2 as TF2
 from pairing_tpu_torch.fields import fp12 as TF12
+from pairing_tpu_torch.fields.fp2 import Fp2
+from pairing_tpu_torch.fields.fp12 import Fq12
 from pairing_tpu_torch.ops import fq12_kernels as FK
 from pairing_tpu_torch.ops import fused_kernels as FU
 from pairing_tpu_torch.ops import klayout as KL
@@ -257,3 +264,125 @@ def test_ladders_reject_bad_digits(ladder, digits):
             FU.pow_ladder(m, m, digits)
         else:
             FU.pow_ladder_w4(m, digits)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D's six-thread split of an Fq12 operation (csrc/field_group.cuh),
+# modelled with the field library: the kernel gives each lane six threads,
+# ranks s = 0..5; each rank's Fq products and Montgomery reductions are
+# computed here on their own, then assembled the way the kernel assembles
+# them. This checks the algebra of the partition only, not the kernel's
+# schedule (its packed c0, lazy-sum selects, in-place scratch and barriers):
+# the card tests hold the kernel itself against pow_ladder_stream_plain.
+#
+# * dense product: rank s reduces the twelve-product sums of output slot s,
+#   components c0 and c1;
+# * cyclotomic square: rank s = 2j + h squares component h of the Fq4 pair
+#   (j, j + 3)'s x^2, y^2 and (x + y)^2, forms component h of the pair's two
+#   Fq2 results after an exchange, then output slot s from one of those
+#   results and input slot s.
+# ---------------------------------------------------------------------------
+
+GROUP = 6  # threads (ranks) per lane
+
+
+def mul_rank(a: Fq12, b: Fq12, s: int, comp: int):
+    """Rank s's component ``comp`` of slot s of a * b: over i, a_i (xi * a_i
+    where i + j >= 6) times b_j for j = s - i mod 6, c0 = a0 b0 + a1 (-b1),
+    c1 = a0 b1 + a1 b0, summed unreduced and reduced once."""
+    terms = []
+    for i in range(6):
+        fold = i > s
+        j = s - i + 6 if fold else s - i
+        ai = TF2.mul_w6(a.s[i]) if fold else a.s[i]
+        bj = b.s[j]
+        ys = (bj.c0, TF.fp_neg(bj.c1)) if comp == 0 else (bj.c1, bj.c0)
+        terms += [TF.mul_wide(ai.c0, ys[0]), TF.mul_wide(ai.c1, ys[1])]
+    return TF.mont_reduce(functools.reduce(TF.wide_add, terms))
+
+
+def fq12_mul_by_ranks(a: Fq12, b: Fq12) -> Fq12:
+    """a * b assembled from the six ranks' reductions: rank s writes slot s."""
+    return Fq12(tuple(Fp2(mul_rank(a, b, s, 0), mul_rank(a, b, s, 1)) for s in range(GROUP)))
+
+
+def sq_rank(x: Fp2, h: int):
+    """Component h of x^2: (x0 + x1)(x0 - x1) for h = 0, (2 x0) x1 for h = 1."""
+    if h == 0:
+        return TF.mont_mul(TF.fp_add(x.c0, x.c1), TF.fp_sub(x.c0, x.c1))
+    return TF.mont_mul(TF.fp_scale(x.c0, 2), x.c1)
+
+
+def cyc_sq_pairs(a: Fq12) -> dict:
+    """The first phase of the split square: {(j, which, h): Fp} for pair j,
+    which 0 = x^2 + xi y^2 and 1 = (x + y)^2 - x^2 - y^2, component h; rank
+    2j + h computes its three squares, and needs its partner's y^2 only."""
+    out = {}
+    for j in range(3):
+        x, y = a.s[j], a.s[j + 3]
+        y2 = Fp2(*(sq_rank(y, h) for h in (0, 1)))
+        x2 = [sq_rank(x, h) for h in (0, 1)]
+        sq3 = [sq_rank(TF2.add(x, y), h) for h in (0, 1)]
+        xy2 = TF2.mul_w6(y2)
+        for h in (0, 1):
+            y2h, xy2h = (y2.c0, xy2.c0) if h == 0 else (y2.c1, xy2.c1)
+            out[j, 0, h] = TF.fp_add(x2[h], xy2h)
+            out[j, 1, h] = TF.fp_sub(sq3[h], TF.fp_add(x2[h], y2h))
+    return out
+
+
+def cyc_sq_by_ranks(a: Fq12) -> Fq12:
+    """The Granger-Scott square assembled as the kernel does: rank s forms
+    slot s as 3 r - 2 a_s (s even, r = pair s/2's first result) or 3 r + 2
+    a_s (s odd, r = the second result of pair 2, 0, 1 for s = 1, 3, 5; xi r
+    for s = 1)."""
+    res = cyc_sq_pairs(a)
+    out = []
+    for s in range(GROUP):
+        odd = s & 1
+        pair = ((s >> 1) + 2) % 3 if odd else s >> 1
+        src = Fp2(res[pair, odd, 0], res[pair, odd, 1])
+        if s == 1:
+            src = TF2.mul_w6(src)
+        t3, t2 = TF2.scale(src, 3), TF2.scale(a.s[s], 2)
+        out.append(TF2.cap(TF2.add(t3, t2) if odd else TF2.sub(t3, t2)))
+    return Fq12(tuple(out))
+
+
+@pytest.mark.parametrize("op", ["mul", "cyc_sq"])
+def test_six_rank_split_matches_field_library(op):
+    """The kernel's partition of an Fq12 product and cyclotomic square over
+    six ranks per lane, on four seeded lanes (cyclotomic-subgroup inputs for
+    the square), exactly against the field library and the oracle."""
+    rng = np.random.default_rng(307)
+
+    def coeffs():
+        return [[int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)]
+                for _ in range(4)]
+
+    if op == "mul":
+        xs, ys = coeffs(), coeffs()
+        a, b = (TF12.fq12_from_int_coeffs(v, "cpu") for v in (xs, ys))
+        got, want = fq12_mul_by_ranks(a, b), TF12.fq12_mul(a, b)
+        oracle = [o.fq12_mul(x, y) for x, y in zip(xs, ys)]
+    else:
+        xs = [o.easy_part(x) for x in coeffs()]
+        a = TF12.fq12_from_int_coeffs(xs, "cpu")
+        got, want = cyc_sq_by_ranks(a), TF12.fq12_cyclotomic_sq(a)
+        oracle = [o.fq12_mul(x, x) for x in xs]
+    assert TF12.fq12_to_int_coeffs(got) == TF12.fq12_to_int_coeffs(want) == oracle
+
+
+def test_pow_ladder_stream_plain_other_digits_matches_oracle():
+    """Kernel D over the w = 4 digits of 0b101101110101 (a negative one
+    among them), its table built by ``pow_x_table`` for those digits."""
+    rng = np.random.default_rng(308)
+    coeffs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+              for _ in range(2)]
+    m, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(coeffs, "cpu"))
+    e = 0b101101110101
+    digits = FU.wnaf_msb(e, 4)
+    assert (digits < 0).any()
+    stream, rows = FU.pow_x_table(m, digits)
+    got = FU.pow_ladder_stream(stream, digits, rows)
+    assert port_ints(got) == [o.pow_fq12(x, e) for x in coeffs]
