@@ -49,8 +49,9 @@ toolkit (nvcc). It
 
 Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
-the three ladder designs for m^BN_X side by side. Kernel D's entry in the
-JSON line also carries its registers, stack, spill and shared bytes per
+the three ladder designs for m^BN_X side by side. The entries of the two
+kernels on the six-thread group core, C (all three modes) and D, in the
+JSON line also carry their registers, stack, spill and shared bytes per
 block from this build's ptxas report. Launch counts are set to 0 just
 before each of the paths of steps 3-7 and read just after; every kernel
 the path runs must have launched in it.
@@ -277,6 +278,15 @@ def ptxas_entry(log: str, kernel: str) -> dict:
             "spill_load_bytes": loads, "shared_bytes_per_block": int(smem.group(1)) if smem else 0}
 
 
+def add_ptxas(entry: dict, log: str, kernel: str) -> None:
+    """A group-core kernel's entry gains its ptxas registers, stack, spills
+    and shared bytes per block."""
+    entry.update(ptxas_entry(log, kernel))
+    print(f"{entry['name']}: {entry['registers']} registers, {entry['stack_bytes']} B stack, "
+          f"spill stores {entry['spill_store_bytes']} B, loads {entry['spill_load_bytes']} B, "
+          f"{entry['shared_bytes_per_block']} B shared per block (ptxas, {kernel})", flush=True)
+
+
 def kernel_phases(results, bound, ptxas_log: str) -> None:
     from pairing_tpu_torch.ops import curve_kernels as CK
     from pairing_tpu_torch.ops import fp_kernels as FPK
@@ -317,6 +327,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
             lambda: FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS, n_pairs, collect),
             lambda: FU.miller_f_plain(tg, ch, ep, sched, n_pairs, collect),
             results, bound, imads, nbytes((tg, ch, ep)))
+        add_ptxas(results[name], ptxas_log, "k_miller_f")
 
     miller_case("miller_f", 1, False)
 
@@ -327,11 +338,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
                    lambda: FU.pow_ladder_stream_plain(stream, digits, rows), results, bound,
                    B * ((len(digits) - 1) * CYC_SQ
                         + int(np.count_nonzero(digits[1:])) * FQ12_DENSE), nbytes((stream,)))
-    d = results["pow_ladder_stream"]
-    d.update(ptxas_entry(ptxas_log, "k_pow_ladder_stream"))
-    print(f"pow_ladder_stream: {d['registers']} registers, {d['stack_bytes']} B stack, spill "
-          f"stores {d['spill_store_bytes']} B, loads {d['spill_load_bytes']} B, "
-          f"{d['shared_bytes_per_block']} B shared per block (ptxas)", flush=True)
+    add_ptxas(results["pow_ladder_stream"], ptxas_log, "k_pow_ladder_stream")
 
     powers = (None, 1, 2, 3)  # the conjugate and the three Frobenius maps
     n_const = sum(int(np.count_nonzero(KL._slot_prog(pw)[0] & KL.MUL_CONST)) for pw in powers)

@@ -1,5 +1,5 @@
-// Fq12 routines split over a group of six threads per lane, for kernel D
-// (csrc/pow_ladder.cu).
+// Fq12 routines split over a group of six threads per lane, for kernels C
+// (csrc/miller_f.cu) and D (csrc/pow_ladder.cu).
 //
 // field.cuh runs a whole Fq12 product in one thread: 252 words of operand
 // beside a 42-word 64-bit accumulator do not fit the 255-register file, so
@@ -15,15 +15,23 @@
 //   schoolbook Fq products, xi * a_i formed on the fly for the folded terms
 //   and 2p - b1 for c0), then one Montgomery reduction: the same lazy sum,
 //   below 480 p^2 < R p.
+// * Dense square f^2 (fq12_sq): rank s sums the unordered slot pairs {i, j}
+//   with i + j = s (mod 6), a cross pair's left operand doubled: four pairs
+//   (8 Fq products a component) for even s, three (6) for odd s.
+// * Product by a line (fq12_mul with a ``present`` mask): the line's three
+//   Fq2 coefficients are staged in shared memory, one component a rank;
+//   rank s sums the three terms whose right slot is present (6 Fq products
+//   a component).
 // * Granger-Scott cyclotomic square: rank s = 2j + h takes Fq4 pair (j,
 //   j + 3) and component h of its three Fq2 squares x^2, y^2, (x + y)^2;
 //   after an exchange through shared memory it forms component h of the
 //   pair's two Fq2 results, and after another, output slot s.
 //
-// Every routine follows field.cuh's fq12_mul / fq12_cyc_sq operation for
-// operation on the same digits, so the outputs are those of kernels A and B
-// digit for digit. Synchronisation is __syncwarp over the 30 working
-// threads only; every thread of the group reaches every barrier.
+// Every routine follows field.cuh's fq12_mul / fq12_sq / fq12_cyc_sq
+// operation for operation on the same digits, so the outputs are those of
+// kernels A, K18 and B digit for digit. Synchronisation is __syncwarp over
+// the 30 working threads only; every thread of the group reaches every
+// barrier.
 #pragma once
 
 #include "field.cuh"
@@ -34,9 +42,9 @@ constexpr int GROUP = 6;        // threads per lane
 constexpr int GROUP_LANES = 5;  // lanes per warp: 30 of its 32 threads
 constexpr unsigned GROUP_MASK = (1u << (GROUP * GROUP_LANES)) - 1;
 constexpr int F12_WORDS = 12 * NL;
-// A lane's shared region: its Fq12 f, then a scratch of the same size (the
-// staged table row, or the square's partial results). One word of padding
-// keeps the 30 threads of a warp at most two to a bank.
+// Kernel D's shared region a lane: its Fq12 f, then a scratch of the same
+// size (the staged table row, or the square's partial results). One word of
+// padding keeps the 30 threads of a warp at most two to a bank.
 constexpr int GROUP_STRIDE = 2 * F12_WORDS + 1;
 
 static __device__ __forceinline__ void sh_load(Fp& x, const uint32_t* p) {
@@ -93,6 +101,41 @@ static __device__ __forceinline__ Fp fp2_sq_part(const Fp& a0, const Fp& a1, int
   return r;
 }
 
+// w += fq12_mul's two Fq products (its t loop) for the term a_i b_j of
+// component ``comp``; a is slot i of the left operand and b slot j of the
+// right one (shared, [2][21] each). x: component t of a_i, or of xi * a_i
+// when ``fold`` (fp2_mul_xi_wide, < 20p), shifted left by ``shift`` (1 for
+// fq12_sq's doubled cross pairs); y: b0, 2p - b1 for c0, b1, b0 for c1.
+static __device__ __forceinline__ void group_mac_term(Wide& w, const uint32_t* a,
+                                                      const uint32_t* b, bool fold, int comp,
+                                                      uint32_t shift) {
+#pragma unroll 1
+  for (int t = 0; t < 2; ++t) {
+    // y: c0 = a0*b0 + a1*(2p - b1);  c1 = a0*b1 + a1*b0
+    Fp y;
+    if (comp == 0 && t == 1) {
+      Fp b1;
+      sh_load(b1, b + NL);
+      y = fp_neg(b1);
+    } else {
+      sh_load(y, b + (comp == t ? 0 : NL));
+    }
+    // x: selected limb by limb, so all ranks run the same instructions
+    Fp x;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      const uint32_t u0 = a[l], u1 = a[NL + l];
+      const uint32_t x0 = fold ? 9 * u0 + KP[KP_2][l] - u1 : u0;
+      const uint32_t x1 = fold ? u0 + 9 * u1 : u1;
+      x.v[l] = t ? x1 : x0;
+    }
+    fp_carry(x);  // settled digits pass unchanged when not folded
+#pragma unroll
+    for (int l = 0; l < NL; ++l) x.v[l] <<= shift;
+    wide_mac(w, x, y);
+  }
+}
+
 // Component ``comp`` of output slot s of a * b, a at ``fa`` and b at ``fb``
 // (shared, [12][21] each): fq12_mul's k = 2s + comp sum over the dense b.
 static __device__ __forceinline__ Fp group_mul_part(const uint32_t* fa, const uint32_t* fb,
@@ -103,56 +146,109 @@ static __device__ __forceinline__ Fp group_mul_part(const uint32_t* fa, const ui
   for (int i = 0; i < 6; ++i) {
     const bool fold = i > s;  // w^(i+j) with i + j >= 6 folds as xi
     const int j = fold ? s - i + 6 : s - i;
-    const uint32_t* a = fa + 2 * i * NL;
-    const uint32_t* b = fb + 2 * j * NL;
-#pragma unroll 1
-    for (int t = 0; t < 2; ++t) {
-      // y: c0 = a0*b0 + a1*(2p - b1);  c1 = a0*b1 + a1*b0
-      Fp y;
-      if (comp == 0 && t == 1) {
-        Fp b1;
-        sh_load(b1, b + NL);
-        y = fp_neg(b1);
-      } else {
-        sh_load(y, b + (comp == t ? 0 : NL));
-      }
-      // x: component t of a_i, or of xi * a_i (fp2_mul_xi_wide, < 20p)
-      Fp x;
-#pragma unroll
-      for (int l = 0; l < NL; ++l) {
-        const uint32_t u0 = a[l], u1 = a[NL + l];
-        const uint32_t x0 = fold ? 9 * u0 + KP[KP_2][l] - u1 : u0;
-        const uint32_t x1 = fold ? u0 + 9 * u1 : u1;
-        x.v[l] = t ? x1 : x0;
-      }
-      fp_carry(x);  // settled digits pass unchanged when not folded
-      wide_mac(w, x, y);
-    }
+    group_mac_term(w, fa + 2 * i * NL, fb + 2 * j * NL, fold, comp, 0);
   }
   Fp r;
   mont_reduce(w, r);
   return r;
 }
 
-// f <- f * b for the lane (b dense, in ``b``); rank s writes slot s once
-// every rank has read all of f. Its c0 waits through the c1 sum packed two
-// 13-bit digits to a word.
-static __device__ __forceinline__ void group_fq12_mul(uint32_t* f, const uint32_t* b, int s) {
-  constexpr int NP = (NL + 1) / 2;
-  uint32_t r0[NP];
-  {
-    const Fp r = group_mul_part(f, b, s, 0);
-#pragma unroll
-    for (int k = 0; k < NP; ++k)
-      r0[k] = r.v[2 * k] | (2 * k + 1 < NL ? r.v[2 * k + 1] << 16 : 0u);
+// Component ``comp`` of output slot s of f^2 (f shared, [12][21]): fq12_sq's
+// k = 2s + comp sum over the unordered slot pairs {i, j}, i <= j, in its
+// order of i: i = 0 .. s/2 with j = s - i, then i = s + 1 .. (s + 6)/2
+// with j = s - i + 6, folded by xi. The left operand of a cross pair
+// (i != j) is doubled; the sum stays below 640 p^2 < R p.
+static __device__ __forceinline__ Fp group_sq_part(const uint32_t* f, int s, int comp) {
+  const int h = s >> 1;
+  const int pairs = (s & 1) ? 3 : 4;
+  Wide w;
+  wide_zero(w);
+#pragma unroll 1
+  for (int q = 0; q < pairs; ++q) {
+    const bool fold = q > h;
+    const int i = fold ? s + q - h : q;
+    const int j = fold ? s - i + 6 : s - i;
+    group_mac_term(w, f + 2 * i * NL, f + 2 * j * NL, fold, comp, i != j);
   }
-  const Fp r1 = group_mul_part(f, b, s, 1);
+  Fp r;
+  mont_reduce(w, r);
+  return r;
+}
+
+// Component ``comp`` of output slot s of f * line: fq12_mul's k = 2s + comp
+// sum over the present slots j = s0, s1, s2, whose coefficients are the
+// line's rows 0-1, 2-3, 4-5 (shared, [6][21]); i = s - j (mod 6).
+static __device__ __forceinline__ Fp group_sparse_part(const uint32_t* f, const uint32_t* line,
+                                                       int s, int comp, int s0, int s1, int s2) {
+  Wide w;
+  wide_zero(w);
+#pragma unroll 1
+  for (int m = 0; m < 3; ++m) {
+    const int j = m == 0 ? s0 : m == 1 ? s1 : s2;
+    const bool fold = j > s;
+    const int i = fold ? s - j + 6 : s - j;
+    group_mac_term(w, f + 2 * i * NL, line + 2 * m * NL, fold, comp, 0);
+  }
+  Fp r;
+  mont_reduce(w, r);
+  return r;
+}
+
+constexpr int PACKED = (NL + 1) / 2;  // words of an Fp packed two digits a word
+
+// A result's 13-bit digits two to a word, to wait through the next sum.
+static __device__ __forceinline__ void pack_digits(const Fp& r, uint32_t (&p)[PACKED]) {
+#pragma unroll
+  for (int k = 0; k < PACKED; ++k)
+    p[k] = r.v[2 * k] | (2 * k + 1 < NL ? r.v[2 * k + 1] << 16 : 0u);
+}
+
+// Rank s writes slot s of f in place, once every rank has read all of f:
+// barrier, write, barrier.
+static __device__ __forceinline__ void group_write_slot(uint32_t* f, int s,
+                                                        const uint32_t (&r0)[PACKED],
+                                                        const Fp& r1) {
   __syncwarp(GROUP_MASK);
   uint32_t* o = f + 2 * s * NL;
 #pragma unroll
   for (int l = 0; l < NL; ++l) o[l] = (r0[l >> 1] >> (16 * (l & 1))) & MASK;
   sh_store(r1, o + NL);
   __syncwarp(GROUP_MASK);
+}
+
+// f <- f * b for the lane (b dense, in ``b``). Each of the in-place
+// routines below computes c0 first; it waits through the c1 sum packed.
+static __device__ __forceinline__ void group_fq12_mul(uint32_t* f, const uint32_t* b, int s) {
+  uint32_t r0[PACKED];
+  pack_digits(group_mul_part(f, b, s, 0), r0);
+  group_write_slot(f, s, r0, group_mul_part(f, b, s, 1));
+}
+
+// f <- f^2, dense (fq12_sq), for any f.
+static __device__ __forceinline__ void group_fq12_sq(uint32_t* f, int s) {
+  uint32_t r0[PACKED];
+  pack_digits(group_sq_part(f, s, 0), r0);
+  group_write_slot(f, s, r0, group_sq_part(f, s, 1));
+}
+
+// f <- f * line, the line staged in ``line`` with coefficients at slots
+// s0 < s1 < s2 (0, 3, 4 or 2, 3, 5); fq12_mul's ``present`` mask.
+static __device__ __forceinline__ void group_fq12_mul_sparse(uint32_t* f, const uint32_t* line,
+                                                             int s, int s0, int s1, int s2) {
+  uint32_t r0[PACKED];
+  pack_digits(group_sparse_part(f, line, s, 0, s0, s1, s2), r0);
+  group_write_slot(f, s, r0, group_sparse_part(f, line, s, 1, s0, s1, s2));
+}
+
+// Component s of a line [6, 21, lanes] (``src`` at component 0 of the
+// lane's column) into the lane's shared line: one Fq a rank, carried as
+// load_line does. The caller's barrier makes it visible to the group.
+static __device__ __forceinline__ void group_stage_line(uint32_t* line,
+                                                        const int32_t* __restrict__ src,
+                                                        size_t lanes, int s) {
+  Fp x;
+  load_fp(x, src + s * NL * lanes, lanes);
+  sh_store(x, line + s * NL);
 }
 
 // f <- the Granger-Scott square of f (fq12_cyc_sq), in place; ``scr`` holds

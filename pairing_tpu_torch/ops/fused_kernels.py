@@ -9,7 +9,7 @@ Counterparts of ``pairing_tpu/ops/fused_kernels.py``'s ``miller_f_pallas``
 ``pow_ladder_pallas`` (K16, plain NAF) and ``pow_ladder_w4_pallas`` (K17, w4
 NAF with the table built in the kernel). Each kernel loops over its steps
 inside one launch and keeps the Fq12 accumulator on the chip: in the thread,
-or for D in shared memory, split over six threads per lane; the plain
+or for C and D in shared memory, split over six threads per lane; the plain
 versions below run the same schedule with the field library.
 """
 

@@ -31,7 +31,7 @@ import os
 import torch
 from torch.profiler import record_function
 
-from ..fields.fp12 import Fq12
+from ..fields.fp12 import Fq12, fq12_cap
 from ..ops import dispatch
 from ..ops import klayout as KL
 from ..ops.fq12_kernels import from_kernel_layout, to_kernel_layout
@@ -149,12 +149,13 @@ def fq12_pow(a: Fq12, e: int) -> Fq12:
     final_exp_native.rs:56-84): square-and-multiply over the MSB-first NAF
     of e with dense squares (kernel K18) and products (kernel A); a -1 digit
     multiplies by a^-1, computed once on kernel G and only when the NAF has
-    such a digit. A one-digit NAF returns a itself."""
+    such a digit. A one-digit NAF returns a capped to the (2p, settled)
+    envelope, as the reference does."""
     if e < 1:
         raise ValueError(f"exponent must be >= 1, got {e}")
     naf = list(reversed(get_naf(e)))
     if len(naf) == 1:
-        return a
+        return fq12_cap(a)
     arr, bs = to_kernel_layout(a)
     inv = KL.kinv(arr) if -1 in naf else None
     f = arr

@@ -72,7 +72,12 @@ def test_cyc_sq_kernel_matches_plain(gen, lanes):
     assert_same(KL.kcyc_sq(m), KL.kcyc_sq_plain(m))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
+#: Kernels C and D run six threads per lane, five lanes per warp, 20 lanes
+#: per block: these lane counts cut a warp's group and a block at the edge.
+GROUP_LANE_COUNTS = [1, 4, 5, 6, 31, 33, 1029, 2048]
+
+
+@pytest.mark.parametrize("lanes", GROUP_LANE_COUNTS)
 def test_miller_f_kernel_matches_plain(gen, lanes):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing import miller_loop as ML
@@ -81,18 +86,18 @@ def test_miller_f_kernel_matches_plain(gen, lanes):
     ch = rand_kf12((ML.N_ADDS, 6), lanes, gen)
     ep = rand_kf12((2, 6), lanes, gen)
     sched = FU.miller_schedule(ML.MILLER_FLAGS, ML.CHORD_ROWS)
-    assert_same(FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS),
-                FU.miller_f_plain(tg, ch, ep, sched))
+    before = FU.MILLER_F.launches
+    got = FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS)
+    assert FU.MILLER_F.launches == before + 1
+    assert_same(got, FU.miller_f_plain(tg, ch, ep, sched))
 
 
 #: chip_smoke.POW_E, whose w = 4 digits include a negative one.
 POW_E = 0b101101110101
 
 
-# Kernel D runs six threads per lane, five lanes per warp, 20 lanes per
-# block: the lane counts cut a warp's group and a block at the edge.
 @pytest.mark.parametrize("e", ["bn_x", POW_E])
-@pytest.mark.parametrize("lanes", [1, 4, 5, 6, 31, 33, 1029, 2048])
+@pytest.mark.parametrize("lanes", GROUP_LANE_COUNTS)
 def test_pow_ladder_kernel_matches_plain(gen, lanes, e):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing.final_exp import easy_part_k
@@ -187,12 +192,12 @@ def test_pairing_on_card_matches_oracle(gen):
     assert pt.fq12_to_int_coeffs(out) == [o.pairing(p, q) for p, q in zip(g1s, g2s)]
 
 
-@pytest.mark.parametrize("n_pairs, collect", [(2, False), (3, True), (1, True)])
-def test_miller_f_modes_match_plain(gen, n_pairs, collect):
+@pytest.mark.parametrize("n_pairs, collect", [(2, False), (4, False), (1, True), (2, True)])
+@pytest.mark.parametrize("lanes", GROUP_LANE_COUNTS)
+def test_miller_f_modes_match_plain(gen, lanes, n_pairs, collect):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing import miller_loop as ML
 
-    lanes = 33
     tg = rand_kf12((ML.N_STEPS, 6), n_pairs * lanes, gen)
     ch = rand_kf12((ML.N_ADDS, 6), n_pairs * lanes, gen)
     ep = rand_kf12((2, 6), n_pairs * lanes, gen)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from pairing_tpu_torch.fields import fp2 as TF2
 from pairing_tpu_torch.fields import fp12 as TF12
 from pairing_tpu_torch.fields.fp12 import fq12_to_canonical_limbs
 from pairing_tpu_torch.ops import dispatch
@@ -204,16 +205,23 @@ def test_fq12_pow_matches_jax_and_oracle(fx, monkeypatch):
 
 @pytest.mark.parametrize("e", [1, 2, 5, 7])
 def test_fq12_pow_small_exponents(e, monkeypatch):
-    """e = 1 has a one-digit NAF and returns a itself; 2 and 5 have no -1
-    digit and take no inverse; 7 = 8 - 1 takes one."""
+    """On an unsettled input (each slot added to itself: digits up to
+    16382, values below 4p): e = 1 has a one-digit NAF and returns a capped
+    to the (2p, settled) envelope, limb for limb as the reference's
+    ``fq12_cap``; 2 and 5 have no -1 digit and take no inverse; 7 = 8 - 1
+    takes one."""
     rng = np.random.default_rng(402 + e)
     coeffs = [[int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)]
               for _ in range(2)]
-    a = port(coeffs)
+    a = TF12.Fq12(tuple(TF2.add(s, s) for s in port(coeffs).s))
+    assert max(int(comp.limbs.max()) for s in a.s for comp in (s.c0, s.c1)) > 8193
     inverses = []
     monkeypatch.setattr(KL, "kinv", lambda x: inverses.append(1) or KL.kinv_plain(x))
     got = FE.fq12_pow(a, e)
     if e == 1:
-        assert got is a
+        want = TF12.fq12_cap(a)
+        assert all(torch.equal(g.limbs, w.limbs)
+                   for gs, ws in zip(got.s, want.s) for g, w in ((gs.c0, ws.c0), (gs.c1, ws.c1)))
     assert len(inverses) == (1 if -1 in c.get_naf(e) else 0)
-    assert TF12.fq12_to_int_coeffs(got) == [o.pow_fq12(x, e) for x in coeffs]
+    doubled = [[2 * x % c.P for x in row] for row in coeffs]
+    assert TF12.fq12_to_int_coeffs(got) == [o.pow_fq12(x, e) for x in doubled]

@@ -16,9 +16,10 @@
   (K17) over short digit vectors with negative digits, against the oracle;
   their digit checks; the ladder digits and the hard-chain program (K15)
   against the JAX package's constants.
-* Kernel D's six-thread split (``csrc/field_group.cuh``), modelled below:
-  each rank's products and reductions apart, assembled as the kernel does,
-  against ``fq12_mul`` / ``fq12_cyclotomic_sq`` and the oracle.
+* The six-thread split of kernels C and D (``csrc/field_group.cuh``),
+  modelled below: each rank's products and reductions apart, assembled as
+  the kernel does, against ``fq12_mul`` / ``fq12_sq`` / ``fq12_mul_sparse``
+  / ``fq12_cyclotomic_sq`` and the oracle.
 Exact (canonical) comparison; every output in the kernel envelope.
 """
 
@@ -267,16 +268,21 @@ def test_ladders_reject_bad_digits(ladder, digits):
 
 
 # ---------------------------------------------------------------------------
-# Kernel D's six-thread split of an Fq12 operation (csrc/field_group.cuh),
-# modelled with the field library: the kernel gives each lane six threads,
-# ranks s = 0..5; each rank's Fq products and Montgomery reductions are
-# computed here on their own, then assembled the way the kernel assembles
-# them. This checks the algebra of the partition only, not the kernel's
-# schedule (its packed c0, lazy-sum selects, in-place scratch and barriers):
-# the card tests hold the kernel itself against pow_ladder_stream_plain.
+# The six-thread split of an Fq12 operation in kernels C and D
+# (csrc/field_group.cuh), modelled with the field library: the kernels give
+# each lane six threads, ranks s = 0..5; each rank's Fq products and
+# Montgomery reductions are computed here on their own, then assembled the
+# way the kernel assembles them. This checks the algebra of the partition
+# only, not the kernels' schedule (their packed c0, lazy-sum selects,
+# in-place scratch and barriers): the card tests hold the kernels themselves
+# against miller_f_plain and pow_ladder_stream_plain.
 #
 # * dense product: rank s reduces the twelve-product sums of output slot s,
 #   components c0 and c1;
+# * dense square: rank s reduces the sums of output slot s over the
+#   unordered slot pairs {i, j}, i + j = s mod 6, a cross pair doubled;
+# * product by a line: rank s reduces the sums of output slot s over the
+#   line's three present slots;
 # * cyclotomic square: rank s = 2j + h squares component h of the Fq4 pair
 #   (j, j + 3)'s x^2, y^2 and (x + y)^2, forms component h of the pair's two
 #   Fq2 results after an exchange, then output slot s from one of those
@@ -286,18 +292,22 @@ def test_ladders_reject_bad_digits(ladder, digits):
 GROUP = 6  # threads (ranks) per lane
 
 
+def _term(x: Fp2, y: Fp2, comp: int) -> list:
+    """The two Fq products of x * y's component ``comp``, unreduced: c0 =
+    x0 y0 + x1 (-y1), c1 = x0 y1 + x1 y0."""
+    ys = (y.c0, TF.fp_neg(y.c1)) if comp == 0 else (y.c1, y.c0)
+    return [TF.mul_wide(x.c0, ys[0]), TF.mul_wide(x.c1, ys[1])]
+
+
 def mul_rank(a: Fq12, b: Fq12, s: int, comp: int):
     """Rank s's component ``comp`` of slot s of a * b: over i, a_i (xi * a_i
-    where i + j >= 6) times b_j for j = s - i mod 6, c0 = a0 b0 + a1 (-b1),
-    c1 = a0 b1 + a1 b0, summed unreduced and reduced once."""
+    where i + j >= 6) times b_j for j = s - i mod 6, summed unreduced and
+    reduced once."""
     terms = []
     for i in range(6):
         fold = i > s
         j = s - i + 6 if fold else s - i
-        ai = TF2.mul_w6(a.s[i]) if fold else a.s[i]
-        bj = b.s[j]
-        ys = (bj.c0, TF.fp_neg(bj.c1)) if comp == 0 else (bj.c1, bj.c0)
-        terms += [TF.mul_wide(ai.c0, ys[0]), TF.mul_wide(ai.c1, ys[1])]
+        terms += _term(TF2.mul_w6(a.s[i]) if fold else a.s[i], b.s[j], comp)
     return TF.mont_reduce(functools.reduce(TF.wide_add, terms))
 
 
@@ -306,7 +316,45 @@ def fq12_mul_by_ranks(a: Fq12, b: Fq12) -> Fq12:
     return Fq12(tuple(Fp2(mul_rank(a, b, s, 0), mul_rank(a, b, s, 1)) for s in range(GROUP)))
 
 
-def sq_rank(x: Fp2, h: int):
+def sq_rank(a: Fq12, s: int, comp: int):
+    """Rank s's component ``comp`` of slot s of a^2: over the unordered
+    pairs {i, j}, i <= j, i + j = s (mod 6) (four for even s, three for odd
+    s), a_i (xi * a_i where i + j >= 6) doubled when i != j, times a_j;
+    summed unreduced and reduced once."""
+    pairs = [(i, (s - i) % 6) for i in range(6) if (s - i) % 6 >= i]
+    assert len(pairs) == (3 if s & 1 else 4)
+    terms = []
+    for i, j in pairs:
+        ai = TF2.mul_w6(a.s[i]) if i + j >= 6 else a.s[i]
+        if i != j:
+            ai = TF2.add(ai, ai)
+        terms += _term(ai, a.s[j], comp)
+    return TF.mont_reduce(functools.reduce(TF.wide_add, terms))
+
+
+def fq12_sq_by_ranks(a: Fq12) -> Fq12:
+    """a^2 assembled from the six ranks' reductions: rank s writes slot s."""
+    return Fq12(tuple(Fp2(sq_rank(a, s, 0), sq_rank(a, s, 1)) for s in range(GROUP)))
+
+
+def sparse_rank(a: Fq12, line: dict, s: int, comp: int):
+    """Rank s's component ``comp`` of slot s of a * line ({slot j: Fp2},
+    three slots): over the present j, a_i (xi * a_i where i + j >= 6) times
+    line_j for i = s - j mod 6; summed unreduced and reduced once."""
+    terms = []
+    for j, lj in line.items():
+        i = (s - j) % 6
+        terms += _term(TF2.mul_w6(a.s[i]) if i + j >= 6 else a.s[i], lj, comp)
+    return TF.mont_reduce(functools.reduce(TF.wide_add, terms))
+
+
+def fq12_mul_sparse_by_ranks(a: Fq12, line: dict) -> Fq12:
+    """a * line assembled from the six ranks' reductions."""
+    return Fq12(tuple(Fp2(sparse_rank(a, line, s, 0), sparse_rank(a, line, s, 1))
+                      for s in range(GROUP)))
+
+
+def fp2_sq_part(x: Fp2, h: int):
     """Component h of x^2: (x0 + x1)(x0 - x1) for h = 0, (2 x0) x1 for h = 1."""
     if h == 0:
         return TF.mont_mul(TF.fp_add(x.c0, x.c1), TF.fp_sub(x.c0, x.c1))
@@ -320,9 +368,9 @@ def cyc_sq_pairs(a: Fq12) -> dict:
     out = {}
     for j in range(3):
         x, y = a.s[j], a.s[j + 3]
-        y2 = Fp2(*(sq_rank(y, h) for h in (0, 1)))
-        x2 = [sq_rank(x, h) for h in (0, 1)]
-        sq3 = [sq_rank(TF2.add(x, y), h) for h in (0, 1)]
+        y2 = Fp2(*(fp2_sq_part(y, h) for h in (0, 1)))
+        x2 = [fp2_sq_part(x, h) for h in (0, 1)]
+        sq3 = [fp2_sq_part(TF2.add(x, y), h) for h in (0, 1)]
         xy2 = TF2.mul_w6(y2)
         for h in (0, 1):
             y2h, xy2h = (y2.c0, xy2.c0) if h == 0 else (y2.c1, xy2.c1)
@@ -349,11 +397,12 @@ def cyc_sq_by_ranks(a: Fq12) -> Fq12:
     return Fq12(tuple(out))
 
 
-@pytest.mark.parametrize("op", ["mul", "cyc_sq"])
+@pytest.mark.parametrize("op", ["mul", "cyc_sq", "sq", "sparse034", "sparse235"])
 def test_six_rank_split_matches_field_library(op):
-    """The kernel's partition of an Fq12 product and cyclotomic square over
-    six ranks per lane, on four seeded lanes (cyclotomic-subgroup inputs for
-    the square), exactly against the field library and the oracle."""
+    """The kernels' partition of an Fq12 product, cyclotomic square, dense
+    square and product by a line of either shape over six ranks per lane,
+    on four seeded lanes (cyclotomic-subgroup inputs for the cyclotomic
+    square), exactly against the field library and the oracle."""
     rng = np.random.default_rng(307)
 
     def coeffs():
@@ -365,11 +414,24 @@ def test_six_rank_split_matches_field_library(op):
         a, b = (TF12.fq12_from_int_coeffs(v, "cpu") for v in (xs, ys))
         got, want = fq12_mul_by_ranks(a, b), TF12.fq12_mul(a, b)
         oracle = [o.fq12_mul(x, y) for x, y in zip(xs, ys)]
-    else:
+    elif op == "cyc_sq":
         xs = [o.easy_part(x) for x in coeffs()]
         a = TF12.fq12_from_int_coeffs(xs, "cpu")
         got, want = cyc_sq_by_ranks(a), TF12.fq12_cyclotomic_sq(a)
         oracle = [o.fq12_mul(x, x) for x in xs]
+    elif op == "sq":
+        xs = coeffs()
+        a = TF12.fq12_from_int_coeffs(xs, "cpu")
+        got, want = fq12_sq_by_ranks(a), TF12.fq12_sq(a)
+        oracle = [o.fq12_mul(x, x) for x in xs]
+    else:
+        slots = (0, 3, 4) if op == "sparse034" else (2, 3, 5)
+        xs, ys = coeffs(), coeffs()
+        ys = [[v if k % 6 in slots else 0 for k, v in enumerate(y)] for y in ys]  # c0s, c1s
+        a, b = (TF12.fq12_from_int_coeffs(v, "cpu") for v in (xs, ys))
+        line = {j: b.s[j] for j in slots}
+        got, want = fq12_mul_sparse_by_ranks(a, line), TF12.fq12_mul_sparse(a, line)
+        oracle = [o.fq12_mul(x, y) for x, y in zip(xs, ys)]
     assert TF12.fq12_to_int_coeffs(got) == TF12.fq12_to_int_coeffs(want) == oracle
 
 
