@@ -49,12 +49,14 @@ toolkit (nvcc). It
 
 Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
-the three ladder designs for m^BN_X side by side. The entries of the two
-kernels on the six-thread group core, C (all three modes) and D, in the
-JSON line also carry their registers, stack, spill and shared bytes per
-block from this build's ptxas report. Launch counts are set to 0 just
-before each of the paths of steps 3-7 and read just after; every kernel
-the path runs must have launched in it.
+the three ladder designs for m^BN_X side by side. The entries of the
+kernels that share a lane between threads with its state in shared memory,
+C (all three modes) and D (six threads a lane) and H (two), in the JSON
+line also carry their registers, stack, spill and shared bytes per block
+from this build's ptxas report (H's shared memory is dynamic, so its
+report shows none; its entry gives the bytes it asks for at launch).
+Launch counts are set to 0 just before each of the paths of steps 3-7 and
+read just after; every kernel the path runs must have launched in it.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line; it also fails at once without a CUDA device. It imports nothing of JAX.
@@ -278,16 +280,20 @@ def ptxas_entry(log: str, kernel: str) -> dict:
             "spill_load_bytes": loads, "shared_bytes_per_block": int(smem.group(1)) if smem else 0}
 
 
-def add_ptxas(entry: dict, log: str, kernel: str) -> None:
-    """A group-core kernel's entry gains its ptxas registers, stack, spills
-    and shared bytes per block."""
+def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0) -> None:
+    """The entry of a kernel that keeps its lanes' state in shared memory
+    gains its ptxas registers, stack, spills and shared bytes per block:
+    the static bytes of the report plus ``dynamic_shared``, the bytes it
+    asks for at launch."""
     entry.update(ptxas_entry(log, kernel))
+    entry["shared_bytes_per_block"] += dynamic_shared
     print(f"{entry['name']}: {entry['registers']} registers, {entry['stack_bytes']} B stack, "
           f"spill stores {entry['spill_store_bytes']} B, loads {entry['spill_load_bytes']} B, "
           f"{entry['shared_bytes_per_block']} B shared per block (ptxas, {kernel})", flush=True)
 
 
 def kernel_phases(results, bound, ptxas_log: str) -> None:
+    from pairing_tpu_torch.ops import build
     from pairing_tpu_torch.ops import curve_kernels as CK
     from pairing_tpu_torch.ops import fp_kernels as FPK
     from pairing_tpu_torch.ops import fq12_kernels as FK
@@ -365,6 +371,8 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("trajectory", lambda: CK.trajectory(q, ML.STEP_DIGITS),
                    lambda: CK.trajectory_plain(q, ML.STEP_DIGITS), results, bound,
                    B * traj_imads, nbytes((q,)))
+    lib, _ = build.load()
+    add_ptxas(results["trajectory"], ptxas_log, "k_trajectory", lib.pt_trajectory_shared_bytes())
 
     z, tinv = rand(2 * ML.N_STEPS + 2, 2), rand(2)
     prefix, _ = NK.prefix_products(z)

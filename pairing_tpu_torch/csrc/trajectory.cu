@@ -10,91 +10,394 @@
 //
 // On the TPU the step axis was a sequential grid axis with R in a VMEM
 // register file, and the step's Fq2 arithmetic ran on the fq2_vm
-// instruction interpreter to keep the kernel IR small. A GPU thread runs the
-// formulas as straight-line code and keeps R for all steps.
+// instruction interpreter to keep the kernel IR small.
 //
-// Bound on the H100: integer multiply-adds, about 35 Fq2 products and
-// squares per step (2300 per lane over 64 steps), against 2 x 1008 bytes
-// written per step; the step loop is serial within a lane. One thread per
-// lane, states in local memory.
+// Bound on the H100: integer multiply-adds, 5 Fq2 squares and 2 products a
+// doubling, 4 and 7 an addition (about 1.41 ms for 16384 lanes over the 64
+// steps of the Miller loop), against 2 x 1008 bytes written per step and
+// lane (about 0.32 ms). The step loop is serial within a lane: each step
+// needs the one before. One thread per lane left a 16384-lane batch at 512
+// warps, four per SM, one per scheduler, with nothing to hide the latency
+// of the dependent multiply-add chains, and its Jacobian states in local
+// memory.
+//
+// Design: two threads per lane, rank h = 0, 1 computes component h of every
+// Fq2 value of the step. A component of an Fq2 product is two Fq products
+// into one accumulator and one Montgomery reduction (fp2_mul), of an Fq2
+// square one product (fp2_sq), and every linear operation (add, sub, small
+// multiple, negation) works one component at a time. So each rank does
+// exactly half of each step and the lane's chain is half as long. A warp
+// holds 16 lanes: threads 0-15 are rank 0 of lanes 0-15, threads 16-31
+// rank 1 of the same lanes, so a component row of 16 neighbouring lanes is
+// one 64-byte store. 16384 lanes make 1,024 warps, one round of 8 warps
+// per SM (2 per scheduler) at up to 255 registers.
+//
+// The lane's live Fq2 values (two Jacobian states, four temporaries) live
+// in shared memory, both components, laid out [slot][comp][limb][16 lanes]
+// per warp: 1,680 bytes a lane, 107,520 bytes a 64-lane block, two blocks
+// an SM. The two components of a limb are 336 words apart, 16 banks, so
+// the 32 threads of a warp hit 32 banks. A rank keeps in registers only its
+// accumulator, the operand pair of its current product and the values of
+// the current stage. The accumulator's columns are 32-bit: with 13-bit
+// digits an Fq2 component's column sum, reduction included, stays below
+// 2^32, so each limb product is one 32-bit multiply-add where field.cuh
+// issues a 64-bit one (IMAD.WIDE), at half the registers.
+//
+// Each stage writes the components that the next stage reads whole; a
+// __syncwarp follows, and every thread reaches every barrier: a lane past
+// the batch edge computes on the last lane's data and stores nothing. Both
+// ranks run the same instructions: operands are selected limb by limb,
+// never by a branch on the rank. The digit is the same in every lane, so
+// its branch is uniform.
+//
+// The operations, their operands' order and every reduction are those of
+// field.cuh's fp2_mul / fp2_sq / fp_add / fp_sub / fp_small / fp_neg in the
+// one-thread kernel this replaces, and each computes the same integers, so
+// the digits of every output are those it wrote.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 namespace pt {
 
-struct Jac { Fp2 X, Y, Z; };
+constexpr int H_LANES = 16;                     // lanes per warp
+constexpr int H_WARPS = 4;                      // warps per block
+constexpr int H_THREADS = 32 * H_WARPS;
+constexpr int H_BLOCK_LANES = H_LANES * H_WARPS;
+constexpr int H_COMP = NL * H_LANES;            // words of one component of a slot
+constexpr int H_SLOT = 2 * H_COMP;              // words of one Fq2 slot
+// Slots per lane: the states R (0-2) and S (3-5), X, Y, Z each, and four
+// temporaries.
+constexpr int H_SLOTS = 10;
+constexpr int H_WARP_WORDS = H_SLOTS * H_SLOT;
+constexpr size_t H_SMEM = (size_t)H_WARPS * H_WARP_WORDS * sizeof(uint32_t);
 
-static __device__ __noinline__ void jac_double(const Jac& p, Jac& r) {
-  const Fp2 A = fp2_sq(p.X);
-  const Fp2 B = fp2_sq(p.Y);
-  const Fp2 C = fp2_sq(B);
-  const Fp2 t = fp2_sq(fp2_add(p.X, B));
-  const Fp2 D = fp2_small(fp2_sub(fp2_sub(t, A), C), 2);
-  const Fp2 E = fp2_small(A, 3);
-  const Fp2 F = fp2_sq(E);
-  r.X = fp2_sub(F, fp2_small(D, 2));
-  r.Y = fp2_sub(fp2_mul(E, fp2_sub(D, r.X)), fp2_small(C, 8));
-  r.Z = fp2_small(fp2_mul(p.Y, p.Z), 2);
+// A slot's word for (comp, limb) of this lane: s + comp * H_COMP + limb *
+// H_LANES, where s already points at the lane's column of the slot.
+static __device__ __forceinline__ void ld(Fp& x, const uint32_t* s, int comp) {
+  const uint32_t* p = s + comp * H_COMP;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) x.v[l] = p[l * H_LANES];
 }
 
-// r = p + (qx, qy); p != +-q along a Miller trajectory of valid inputs.
-static __device__ __noinline__ void jac_mixed_add(const Jac& p, const Fp2& qx, const Fp2& qy,
-                                                  Jac& r) {
-  const Fp2 Z1Z1 = fp2_sq(p.Z);
-  const Fp2 U2 = fp2_mul(qx, Z1Z1);
-  const Fp2 S2 = fp2_mul(fp2_mul(qy, p.Z), Z1Z1);
-  const Fp2 H = fp2_sub(U2, p.X);
-  const Fp2 HH = fp2_sq(H);
-  const Fp2 I = fp2_small(HH, 4);
-  const Fp2 J = fp2_mul(H, I);
-  const Fp2 rr = fp2_small(fp2_sub(S2, p.Y), 2);
-  const Fp2 V = fp2_mul(p.X, I);
-  r.X = fp2_sub(fp2_sub(fp2_sq(rr), J), fp2_small(V, 2));
-  r.Y = fp2_sub(fp2_mul(rr, fp2_sub(V, r.X)), fp2_small(fp2_mul(p.Y, J), 2));
-  r.Z = fp2_sub(fp2_sub(fp2_sq(fp2_add(p.Z, H)), Z1Z1), HH);
+static __device__ __forceinline__ void st(const Fp& x, uint32_t* s, int comp) {
+  uint32_t* p = s + comp * H_COMP;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) p[l * H_LANES] = x.v[l];
 }
 
-// X, Y, Z as six component rows [6, 21, lanes].
-static __device__ __forceinline__ void store_jac(const Jac& p, int32_t* __restrict__ dst,
-                                                 size_t lanes) {
-  store_fp2(p.X, dst, lanes);
-  store_fp2(p.Y, dst + 2 * NL * lanes, lanes);
-  store_fp2(p.Z, dst + 4 * NL * lanes, lanes);
+// Column sums in 32 bits. Every operand here has digits below 2^13 (each
+// value is an output of field.cuh's carried routines or of load_fp), so a
+// column of two products' limb products (at most 42 terms below 2^26), its
+// 21 reduction terms m * p_j and one carry (below 2^19) stays below
+// 4.11e9 < 2^32: the sums are the 64-bit ones of wide_mac / mont_reduce,
+// exactly, in half the registers and with 32-bit multiply-adds.
+struct Wide32 { uint32_t t[2 * NL]; };
+
+static __device__ __forceinline__ void w32_zero(Wide32& w) {
+#pragma unroll
+  for (int i = 0; i < 2 * NL; ++i) w.t[i] = 0;
 }
 
-__global__ void __launch_bounds__(BLOCK)
+static __device__ __forceinline__ void w32_mac(Wide32& w, const Fp& a, const Fp& b) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+#pragma unroll
+    for (int j = 0; j < NL; ++j) w.t[i + j] += a.v[i] * b.v[j];
+}
+
+// mont_reduce on 32-bit columns.
+static __device__ __forceinline__ void w32_reduce(Wide32& w, Fp& r) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t m = (w.t[i] * NP0) & MASK;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) w.t[i + j] += m * KP[KP_1][j];
+    w.t[i + 1] += w.t[i] >> RB;
+  }
+  uint32_t c = 0;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const uint32_t s = w.t[NL + k] + c;
+    r.v[k] = s & MASK;
+    c = s >> RB;
+  }
+}
+
+// w += x times the component of the slot b that fp2_mul pairs with
+// component c of its left operand for output component h: b_h for c = 0;
+// for c = 1, b0 (h = 1) or 2p - b1 (h = 0), selected limb by limb.
+static __device__ __forceinline__ void mac_b(Wide32& w, const Fp& x, const uint32_t* b, int c,
+                                             int h) {
+  Fp y;
+  ld(y, b, c ^ h);
+  if (c) {
+    const Fp ny = fp_neg(y);
+#pragma unroll
+    for (int l = 0; l < NL; ++l) y.v[l] = h ? y.v[l] : ny.v[l];
+  }
+  w32_mac(w, x, y);
+}
+
+// Component h of fp2_mul(a, b): a0 b0 + a1 (2p - b1) for h = 0, a0 b1 +
+// a1 b0 for h = 1, one reduction.
+static __device__ __forceinline__ Fp mul_part(const uint32_t* a, const uint32_t* b, int h) {
+  Wide32 w;
+  w32_zero(w);
+  Fp x;
+  ld(x, a, 0);
+  mac_b(w, x, b, 0, h);
+  ld(x, a, 1);
+  mac_b(w, x, b, 1, h);
+  Fp r;
+  w32_reduce(w, r);
+  return r;
+}
+
+// The same with the left operand the affine Q row pair at ``a`` (this lane's
+// column of two batch-last rows), negated when ``neg``.
+static __device__ __forceinline__ Fp mul_part_q(const int32_t* __restrict__ a, size_t lanes,
+                                                bool neg, const uint32_t* b, int h) {
+  Wide32 w;
+  w32_zero(w);
+#pragma unroll 1
+  for (int c = 0; c < 2; ++c) {
+    Fp x;
+    load_fp(x, a + c * NL * lanes, lanes);
+    if (neg) x = fp_neg(x);
+    mac_b(w, x, b, c, h);
+  }
+  Fp r;
+  w32_reduce(w, r);
+  return r;
+}
+
+// Component h of fp2_sq(a0 + a1 u), as field_group.cuh's fp2_sq_part:
+// (a0 + a1)(a0 - a1 + 2p) for h = 0, (2 a0) a1 for h = 1.
+static __device__ __forceinline__ Fp sq_of(const Fp& a0, const Fp& a1, int h) {
+  Fp x, y;
+#pragma unroll
+  for (int l = 0; l < NL; ++l) {
+    x.v[l] = h ? 2 * a0.v[l] : a0.v[l] + a1.v[l];
+    y.v[l] = h ? a1.v[l] : a0.v[l] + KP[KP_2][l] - a1.v[l];
+  }
+  fp_carry(x);
+  fp_carry(y);
+  Wide32 w;
+  w32_zero(w);
+  w32_mac(w, x, y);
+  Fp r;
+  w32_reduce(w, r);
+  return r;
+}
+
+// fp_small(a, K) for a < 2p: K a < 2K p, so of fp_reduce32's conditional
+// subtractions of 16p, 8p, 4p and 2p only those below 2K p can apply; the
+// others are skipped. Same result, fewer carry chains.
+template <uint32_t K>
+static __device__ __forceinline__ Fp small(const Fp& a) {
+  static_assert(K >= 2 && K <= 8, "K a must stay below 16p");
+  Fp r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = a.v[i] * K;
+  fp_carry(r);
+  if (K > 4) fp_cond_sub(r, KP_8);
+  if (K > 2) fp_cond_sub(r, KP_4);
+  fp_cond_sub(r, KP_2);
+  return r;
+}
+
+// Component h of fp2_sq of the slot a.
+static __device__ __forceinline__ Fp sq_part(const uint32_t* a, int h) {
+  Fp a0, a1;
+  ld(a0, a, 0);
+  ld(a1, a, 1);
+  return sq_of(a0, a1, h);
+}
+
+// Component h of fp2_sq(fp2_add(a, b)).
+static __device__ __forceinline__ Fp sq_sum_part(const uint32_t* a, const uint32_t* b, int h) {
+  Fp u, v;
+  ld(u, a, 0);
+  ld(v, b, 0);
+  const Fp s0 = fp_add(u, v);
+  ld(u, a, 1);
+  ld(v, b, 1);
+  return sq_of(s0, fp_add(u, v), h);
+}
+
+// Component h of a slot (rows h, h + 2, h + 4 of a Jacobian state: X, Y, Z)
+// to the batch-last rows [6, 21, lanes] at dst (this lane's column).
+static __device__ __forceinline__ void store_state(const uint32_t* s, int32_t* __restrict__ dst,
+                                                   size_t lanes, int h) {
+#pragma unroll 1
+  for (int k = 0; k < 3; ++k) {
+    Fp x;
+    ld(x, s + k * H_SLOT, h);
+    store_fp(x, dst + (2 * k + h) * NL * lanes, lanes);
+  }
+}
+
+// jac_double: state p (slots px, py, pz) into state r; t0..t3 temporaries.
+static __device__ __forceinline__ void lane_double(const uint32_t* p, uint32_t* r, uint32_t* t,
+                                                   int h) {
+  const uint32_t *X = p, *Y = p + H_SLOT, *Z = p + 2 * H_SLOT;
+  uint32_t *rX = r, *rY = r + H_SLOT, *rZ = r + 2 * H_SLOT;
+  uint32_t *tB = t, *tE = t + H_SLOT, *tC = t + 2 * H_SLOT, *tW = t + 3 * H_SLOT;
+  // stage 1: A = X^2 (kept in rX's own component), E = 3A, B = Y^2,
+  // Z3 = 2 Y Z
+  {
+    const Fp A = sq_part(X, h);
+    st(A, rX, h);
+    st(small<3>(A), tE, h);
+  }
+  st(sq_part(Y, h), tB, h);
+  st(small<2>(mul_part(Y, Z, h)), rZ, h);
+  __syncwarp();
+  // stage 2: C = B^2 (kept), D = 2((X + B)^2 - A - C) (kept in rY),
+  // X3 = E^2 - 2D, W = D - X3
+  {
+    const Fp C = sq_part(tB, h);
+    st(C, tC, h);
+    Fp A;
+    ld(A, rX, h);
+    const Fp D = small<2>(fp_sub(fp_sub(sq_sum_part(X, tB, h), A), C));
+    st(D, rY, h);
+  }
+  {
+    const Fp F = sq_part(tE, h);
+    Fp D;
+    ld(D, rY, h);
+    const Fp X3 = fp_sub(F, small<2>(D));
+    st(X3, rX, h);
+    st(fp_sub(D, X3), tW, h);
+  }
+  __syncwarp();
+  // stage 3: Y3 = E W - 8C
+  {
+    const Fp m = mul_part(tE, tW, h);
+    Fp C;
+    ld(C, tC, h);
+    st(fp_sub(m, small<8>(C)), rY, h);
+  }
+  __syncwarp();
+}
+
+// jac_mixed_add: state p plus the affine (qx, qy) into state r; (qx, qy)
+// at q (this lane's column of the rows [4, 21, lanes]), qy negated when
+// ``neg``. r's slots are written; of p's, only Z is (with a temporary, once
+// p's Z is read no more).
+static __device__ __forceinline__ void lane_mixed_add(uint32_t* p, const int32_t* __restrict__ q,
+                                                      size_t lanes, bool neg, uint32_t* r,
+                                                      uint32_t* t, int h) {
+  const uint32_t *X = p, *Y = p + H_SLOT;
+  uint32_t* Z = p + 2 * H_SLOT;
+  uint32_t *rX = r, *rY = r + H_SLOT, *rZ = r + 2 * H_SLOT;
+  uint32_t *t0 = t, *t1 = t + H_SLOT, *t2 = t + 2 * H_SLOT, *t3 = t + 3 * H_SLOT;
+  // stage 1: Z1Z1 = Z^2 (t0); T = qy Z (t1)
+  st(sq_part(Z, h), t0, h);
+  st(mul_part_q(q + 2 * NL * lanes, lanes, neg, Z, h), t1, h);
+  __syncwarp();
+  // stage 2: U2 = qx Z1Z1, S2 = T Z1Z1; H = U2 - X (t2), rr = 2(S2 - Y) (t3)
+  {
+    const Fp U2 = mul_part_q(q, lanes, false, t0, h);
+    Fp x;
+    ld(x, X, h);
+    st(fp_sub(U2, x), t2, h);
+  }
+  {
+    const Fp S2 = mul_part(t1, t0, h);
+    Fp y;
+    ld(y, Y, h);
+    st(small<2>(fp_sub(S2, y)), t3, h);
+  }
+  __syncwarp();
+  // stage 3: Z3 = (Z + H)^2 - Z1Z1 - HH (rZ); I = 4 HH (t1), HH = H^2;
+  // rr^2 (kept in rX)
+  {
+    Fp z;
+    ld(z, t0, h);
+    st(fp_sub(sq_sum_part(Z, t2, h), z), rZ, h);
+  }
+  {
+    const Fp HH = sq_part(t2, h);
+    st(small<4>(HH), t1, h);
+    Fp z;
+    ld(z, rZ, h);
+    st(fp_sub(z, HH), rZ, h);
+  }
+  st(sq_part(t3, h), rX, h);
+  __syncwarp();
+  // stage 4: J = H I (t0), V = X I; X3 = rr^2 - J - 2V (rX), W = V - X3 (Z's
+  // slot: p's Z is read no more)
+  {
+    const Fp J = mul_part(t2, t1, h);
+    st(J, t0, h);
+    const Fp V = mul_part(X, t1, h);
+    Fp s;
+    ld(s, rX, h);
+    const Fp X3 = fp_sub(fp_sub(s, J), small<2>(V));
+    st(X3, rX, h);
+    st(fp_sub(V, X3), Z, h);
+  }
+  __syncwarp();
+  // stage 5: Y3 = rr W - 2 Y J
+  {
+    const Fp m = mul_part(t3, Z, h);
+    st(m, rY, h);
+    const Fp yj = mul_part(Y, t0, h);
+    Fp u;
+    ld(u, rY, h);
+    st(fp_sub(u, small<2>(yj)), rY, h);
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(H_THREADS, 2)
 k_trajectory(const int32_t* __restrict__ q, const int32_t* __restrict__ digits, int n_steps,
              int32_t* __restrict__ tops, int32_t* __restrict__ dbls,
              int32_t* __restrict__ end, int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+  extern __shared__ uint32_t traj_smem[];
+  const int warp = threadIdx.x >> 5, t32 = threadIdx.x & 31;
+  const int g = t32 & (H_LANES - 1), h = t32 >> 4;
+  const int lane = (blockIdx.x * H_WARPS + warp) * H_LANES + g;
+  // A lane past the batch edge works on the last lane's data, reaches every
+  // barrier with its partner and stores nothing.
+  const bool live = lane < lanes;
   const size_t n = (size_t)lanes;
+  const size_t col = live ? (size_t)lane : n - 1;
   const size_t state_words = 6 * NL * n;
-  const Fp2 qx = load_fp2(q + lane, n);
-  const Fp2 qy = load_fp2(q + 2 * NL * n + lane, n);
-  const Fp2 nqy = fp2_neg(qy);
-  Jac cur, dbl;
-  cur.X = qx;
-  cur.Y = qy;
+  uint32_t* base = traj_smem + warp * H_WARP_WORDS + g;
+  uint32_t* cur = base;                 // R
+  uint32_t* nxt = base + 3 * H_SLOT;    // 2R
+  uint32_t* tmp = base + 6 * H_SLOT;
+  const int32_t* qc = q + col;
+  {
+    Fp x;
+    load_fp(x, qc + h * NL * n, n);
+    st(x, cur, h);
+    load_fp(x, qc + (2 + h) * NL * n, n);
+    st(x, cur + H_SLOT, h);
 #pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    cur.Z.c0.v[l] = KP[KP_ONE][l];
-    cur.Z.c1.v[l] = 0u;
+    for (int l = 0; l < NL; ++l) x.v[l] = h ? 0u : KP[KP_ONE][l];
+    st(x, cur + 2 * H_SLOT, h);
   }
+  __syncwarp();
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
-    store_jac(cur, tops + t * state_words + lane, n);
-    jac_double(cur, dbl);
-    store_jac(dbl, dbls + t * state_words + lane, n);
+    if (live) store_state(cur, tops + t * state_words + lane, n, h);
+    lane_double(cur, nxt, tmp, h);
+    if (live) store_state(nxt, dbls + t * state_words + lane, n, h);
     const int d = __ldg(digits + t);
     if (d != 0) {
-      jac_mixed_add(dbl, qx, d > 0 ? qy : nqy, cur);
+      lane_mixed_add(nxt, qc, n, d < 0, cur, tmp, h);
     } else {
-      cur = dbl;
+      uint32_t* s = cur;
+      cur = nxt;
+      nxt = s;
     }
   }
-  store_jac(cur, end + lane, n);
+  if (live) store_state(cur, end + lane, n, h);
 }
 
 }  // namespace pt
@@ -102,9 +405,16 @@ k_trajectory(const int32_t* __restrict__ q, const int32_t* __restrict__ digits, 
 extern "C" int pt_trajectory(const int32_t* q, const int32_t* digits, int n_steps, int32_t* tops,
                              int32_t* dbls, int32_t* end, int lanes, void* stream) {
   if (lanes > 0) {
-    const int blocks = (lanes + pt::BLOCK - 1) / pt::BLOCK;
-    pt::k_trajectory<<<blocks, pt::BLOCK, 0, (cudaStream_t)stream>>>(q, digits, n_steps, tops,
-                                                                    dbls, end, lanes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        pt::k_trajectory, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pt::H_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (lanes + pt::H_BLOCK_LANES - 1) / pt::H_BLOCK_LANES;
+    pt::k_trajectory<<<blocks, pt::H_THREADS, pt::H_SMEM, (cudaStream_t)stream>>>(
+        q, digits, n_steps, tops, dbls, end, lanes);
   }
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a block of k_trajectory asks for at launch
+// (ptxas reports static shared memory only).
+extern "C" int pt_trajectory_shared_bytes() { return (int)pt::H_SMEM; }

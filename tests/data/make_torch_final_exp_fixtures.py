@@ -9,7 +9,11 @@ result, ``pow_x_cyclotomic(m)`` and ``hard_part(m)``; ``final_exp(a)``;
 ``fq12_sq(a)``, ``fq12_pow(a, POW_E)`` and ``fq12_mul_sparse`` of ``a`` by
 the line of each shape, (0, 3, 4) and (2, 3, 5). Every value is kept as
 canonical (fully reduced, non-Montgomery) 13-bit limbs [4, 12, 21], so the
-test needs no JAX compile.
+test needs no JAX compile, and also as the XLA path left them,
+``raw_<name>``: the Montgomery-domain limbs of its own representative, not
+reduced to canonical form, in the same [4, 12, 21] order (row i slot i's
+c0, row i + 6 its c1), for the raw-limb comparisons of the port's functions
+that run the same operation sequence.
 
 Regenerate from the repository root with:
 
@@ -66,22 +70,26 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     a_ints, lines = seeded_inputs()
     a = F12.fq12_from_int_coeffs(a_ints)
-    canon = lambda x: np.asarray(F12.fq12_to_canonical_limbs(x))  # noqa: E731
-    m = jax.jit(FE.easy_part)(a)
-    out = {
-        "a": canon(a),
-        "easy_part": canon(m),
-        "pow_x_cyclotomic": canon(jax.jit(FE.pow_x_cyclotomic)(m)),
-        "hard_part": canon(jax.jit(FE.hard_part)(m)),
-        "final_exp": canon(jax.jit(FE.final_exp)(a)),
-        "fq12_sq": canon(jax.jit(F12.fq12_sq)(a)),
-        "fq12_pow": canon(jax.jit(lambda x: FE.fq12_pow(x, POW_E))(a)),
-    }
+    out = {}
+
+    def keep(name, x):
+        out[name] = np.asarray(F12.fq12_to_canonical_limbs(x))
+        out["raw_" + name] = np.stack(
+            [np.asarray(s.c0.limbs) for s in x.s] + [np.asarray(s.c1.limbs) for s in x.s],
+            axis=-2)
+        return x
+
+    keep("a", a)
+    m = keep("easy_part", jax.jit(FE.easy_part)(a))
+    keep("pow_x_cyclotomic", jax.jit(FE.pow_x_cyclotomic)(m))
+    keep("hard_part", jax.jit(FE.hard_part)(m))
+    keep("final_exp", jax.jit(FE.final_exp)(a))
+    keep("fq12_sq", jax.jit(F12.fq12_sq)(a))
+    keep("fq12_pow", jax.jit(lambda x: FE.fq12_pow(x, POW_E))(a))
     for name, slots in LINE_SHAPES.items():
-        line = F12.fq12_from_int_coeffs(lines[name])
-        out["line_" + name] = canon(line)
+        line = keep("line_" + name, F12.fq12_from_int_coeffs(lines[name]))
         prod = jax.jit(lambda x, y, s=slots: F12.fq12_mul_sparse(x, {j: y.s[j] for j in s}))
-        out["mul_sparse_" + name] = canon(prod(a, line))
+        keep("mul_sparse_" + name, prod(a, line))
     np.savez_compressed(OUT, seed=np.int64(SEED), pow_e=np.int64(POW_E), **out)
     print(f"wrote {OUT}")
 

@@ -140,13 +140,21 @@ def test_fq12_inv_kernel_matches_plain(gen, lanes):
     assert_same(KL.kinv(a), KL.kinv_plain(a))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
-def test_trajectory_kernel_matches_plain(gen, lanes):
+#: Lane counts that cut kernel H's 16-lane warps and 64-lane blocks.
+TRAJECTORY_LANE_COUNTS = [1, 15, 16, 17, 33, 63, 65, 1024, 1029, 2048]
+#: A digit string with runs of +-1 and of 0, beside the Miller loop's own.
+RUN_DIGITS = [1, 1, -1, -1, 0, 0, 0, 1, -1, 0, 1, 1, 1, 0, -1, -1, -1, 0, 0, 1]
+
+
+@pytest.mark.parametrize("digits", ["miller", "runs"])
+@pytest.mark.parametrize("lanes", TRAJECTORY_LANE_COUNTS)
+def test_trajectory_kernel_matches_plain(gen, lanes, digits):
     from pairing_tpu_torch.ops import curve_kernels as CK
     from pairing_tpu_torch.pairing import miller_loop as ML
 
+    steps = list(ML.STEP_DIGITS) if digits == "miller" else RUN_DIGITS
     q = rand_kf12((4,), lanes, gen)
-    assert_same(CK.trajectory(q, ML.STEP_DIGITS), CK.trajectory_plain(q, ML.STEP_DIGITS))
+    assert_same(CK.trajectory(q, steps), CK.trajectory_plain(q, steps))
 
 
 @pytest.mark.parametrize("lanes", [33, 1024])

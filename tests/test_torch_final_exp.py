@@ -7,9 +7,27 @@ checked in). On CPU tensors every kernel takes its plain version: K17 under
 ``pow_x_cyclotomic`` and ``hard_part``, K16, K15 (``hard_chain_plain``), K18
 under ``fq12_sq`` and ``fq12_pow``, kernel A's sparse mode, G under
 ``easy_part``. Comparison is exact on canonical limbs, against the fixture
-and the port's pure-integer oracle. A plain ladder costs seconds even on
-one lane, so the ladder tests take one lane and ``hard_part``'s test lets
-the oracle stand in for its three ladders.
+and the port's pure-integer oracle, and on raw limbs against the fixture's
+``raw_*`` arrays: the Montgomery-domain limbs that the XLA path left, before
+any reduction to canonical form. Every function here runs the XLA path's
+operation sequence on the CPU (the kernels' plain versions repeat the field
+library's lazy sums), so the representatives agree limb for limb, not only
+the values. Where the two legitimately differ:
+
+* the CUDA kernels reduce every Fq sum and difference below 2p
+  (``csrc/field.cuh``: ``fp_add`` and ``fp_sub`` subtract 2p when the
+  result reaches it), where the field library keeps them lazy, below 4p
+  or more, and reduces only in the Montgomery reduction; a Montgomery
+  product of two representatives of one value may then differ by p. So
+  the card's tests (``tests/test_torch_cuda.py``) and ``chip_smoke.py``
+  compare canonical values;
+* ``fq12_pow`` for e = 2, 5, 7 and the fused chain's inputs have no XLA
+  fixture: they are held to the oracle (canonical) and, for e = 1 and the
+  fused chain, to the port's own raw limbs.
+
+A plain ladder costs seconds even on one lane, so the ladder tests take one
+lane, ``hard_part``'s test lets the oracle stand in for its three ladders,
+and the whole final exponentiation runs on one lane.
 """
 
 import importlib.util
@@ -48,6 +66,8 @@ def fx():
     assert TF12.fq12_limbs_to_int_coeffs(data["a"]) == a_ints
     for name in mod.LINE_SHAPES:
         assert TF12.fq12_limbs_to_int_coeffs(data["line_" + name]) == lines[name]
+        assert raw(port(lines[name])) == data["raw_line_" + name].tolist()
+    assert raw(port(a_ints)) == data["raw_a"].tolist()
     return mod, data, a_ints, lines
 
 
@@ -61,6 +81,17 @@ def canon(x: TF12.Fq12) -> list:
         for comp in (s.c0, s.c1):
             assert int(comp.limbs.min()) >= 0 and int(comp.limbs.max()) <= 8193
     return fq12_to_canonical_limbs(x).numpy().tolist()
+
+
+def raw(x: TF12.Fq12) -> list:
+    """Raw Montgomery-domain limbs [B, 12, 21] in the fixture's order: row i
+    slot i's c0, row i + 6 its c1."""
+    comps = [s.c0.limbs for s in x.s] + [s.c1.limbs for s in x.s]
+    return torch.stack(torch.broadcast_tensors(*comps), dim=-2).numpy().tolist()
+
+
+def kf12_raw(arr: torch.Tensor) -> list:
+    return raw(FK.from_kernel_layout(arr, (arr.shape[-1],)))
 
 
 def port(coeffs) -> TF12.Fq12:
@@ -80,6 +111,7 @@ def test_easy_part_matches_jax_and_oracle(fx):
     _, data, a, _ = fx
     got = FE.easy_part(port(a[:2]))
     assert canon(got) == data["easy_part"][:2].tolist()
+    assert raw(got) == data["raw_easy_part"][:2].tolist()
     assert TF12.fq12_to_int_coeffs(got) == [o.easy_part(x) for x in a[:2]]
 
 
@@ -96,6 +128,7 @@ def test_pow_x_cyclotomic_is_k17_and_matches_jax(fx, monkeypatch):
     got = FE.pow_x_cyclotomic(port(m))
     assert calls == [FU.BN_X_W4_DIGITS.tolist()]
     assert canon(got) == data["pow_x_cyclotomic"][:1].tolist()
+    assert raw(got) == data["raw_pow_x_cyclotomic"][:1].tolist()
     assert TF12.fq12_to_int_coeffs(got) == [o.pow_fq12(x, c.BN_X) for x in m]
 
 
@@ -121,6 +154,9 @@ def test_hard_part_matches_jax_and_oracle(fx, monkeypatch):
         powers.append([o.pow_fq12(v, c.BN_X) for v in powers[-1]])
     assert fed == powers
     assert canon(got) == data["hard_part"][:2].tolist()
+    # the oracle's powers enter as canonical representatives; on these lanes
+    # the XLA ladders' outputs lead the chain to the same limbs
+    assert raw(got) == data["raw_hard_part"][:2].tolist()
     assert TF12.fq12_to_int_coeffs(got) == [o.hard_part(x) for x in m]
     # the split final exponentiation is the final exponentiation
     assert data["hard_part"].tolist() == data["final_exp"].tolist()
@@ -132,6 +168,7 @@ def test_pow_ladder_plain_naf_matches_jax(fx):
     m = kf12(ints(data["easy_part"][1:2]))
     got = FU.pow_ladder(m, KL.kconj(m), FU.BN_X_LADDER_DIGITS)
     assert kf12_canon(got) == data["pow_x_cyclotomic"][1:2].tolist()
+    assert kf12_raw(got) == data["raw_pow_x_cyclotomic"][1:2].tolist()
 
 
 def test_hard_chain_plain_equals_unfused_chain(monkeypatch):
@@ -144,6 +181,7 @@ def test_hard_chain_plain_equals_unfused_chain(monkeypatch):
     unfused = FE.hard_part_chain_k(*xs, fused=False)
     fused = FE.hard_part_chain_k(*xs, fused=True)  # K15's plain version on CPU operands
     assert kf12_canon(fused) == kf12_canon(unfused)
+    assert torch.equal(fused, unfused)  # raw limbs: the same operation sequence
 
     calls = []
     monkeypatch.setattr(FE, "hard_chain", lambda *a: calls.append("fused"))
@@ -159,6 +197,7 @@ def test_fq12_sq_plain_matches_jax_and_oracle(fx):
     _, data, a, _ = fx
     got = KL.ksq(kf12(a))
     assert kf12_canon(got) == data["fq12_sq"].tolist()
+    assert kf12_raw(got) == data["raw_fq12_sq"].tolist()
     assert ints(kf12_canon(got)) == [o.fq12_mul(x, x) for x in a]
 
 
@@ -175,6 +214,7 @@ def test_mul_sparse_plain_matches_jax_and_oracle(fx, shape):
     line = kf12(lines[shape])
     got = KL.kmul_sparse(kf12(a), slots, line)
     assert kf12_canon(got) == data["mul_sparse_" + shape].tolist()
+    assert kf12_raw(got) == data["raw_mul_sparse_" + shape].tolist()
     # absent slots of b are never read
     junk = line.clone()
     for j in set(range(6)) - set(slots):
@@ -184,6 +224,7 @@ def test_mul_sparse_plain_matches_jax_and_oracle(fx, shape):
     lv = port(lines[shape])
     got12 = dispatch.fq12_mul_sparse(port(a), {j: lv.s[j] for j in slots})
     assert canon(got12) == data["mul_sparse_" + shape].tolist()
+    assert raw(got12) == data["raw_mul_sparse_" + shape].tolist()
 
 
 @pytest.mark.parametrize("present", [(), (0, 0, 3), (6,), (-1, 2)])
@@ -200,7 +241,19 @@ def test_fq12_pow_matches_jax_and_oracle(fx, monkeypatch):
     got = FE.fq12_pow(port(a), mod.POW_E)
     assert inverses == [1]  # its NAF has -1 digits: one inverse
     assert canon(got) == data["fq12_pow"].tolist()
+    assert raw(got) == data["raw_fq12_pow"].tolist()
     assert TF12.fq12_to_int_coeffs(got) == [o.pow_fq12(x, mod.POW_E) for x in a]
+
+
+def test_final_exp_raw_limbs_match_jax(fx):
+    """The whole final exponentiation on one lane (easy part, three K17
+    ladders, the 29-operation chain, every kernel on its plain version):
+    the XLA path's raw limbs, and the oracle."""
+    _, data, a, _ = fx
+    got = FE.final_exp(port(a[3:]))
+    assert raw(got) == data["raw_final_exp"][3:].tolist()
+    assert canon(got) == data["final_exp"][3:].tolist()
+    assert TF12.fq12_to_int_coeffs(got) == [o.final_exp(a[3])]
 
 
 @pytest.mark.parametrize("e", [1, 2, 5, 7])
