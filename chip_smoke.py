@@ -50,11 +50,11 @@ toolkit (nvcc). It
 Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
-kernels that share a lane between threads with its state in shared memory,
-C (all three modes) and D (six threads a lane) and H (two), in the JSON
-line also carry their registers, stack, spill and shared bytes per block
-from this build's ptxas report (H's shared memory is dynamic, so its
-report shows none; its entry gives the bytes it asks for at launch).
+redesigned kernels, C (all three modes) and D (six threads a lane), H (two)
+and K (one thread per line and lane), in the JSON line also carry their
+registers, stack, spill and shared bytes per block from this build's
+ptxas report (H's shared memory is dynamic, so its report shows none; its
+entry gives the bytes it asks for at launch).
 Launch counts are set to 0 just before each of the paths of steps 3-7 and
 read just after; every kernel the path runs must have launched in it.
 
@@ -281,8 +281,8 @@ def ptxas_entry(log: str, kernel: str) -> dict:
 
 
 def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0) -> None:
-    """The entry of a kernel that keeps its lanes' state in shared memory
-    gains its ptxas registers, stack, spills and shared bytes per block:
+    """The entry of a redesigned kernel gains its ptxas registers, stack,
+    spills and shared bytes per block:
     the static bytes of the report plus ``dynamic_shared``, the bytes it
     asks for at launch."""
     entry.update(ptxas_entry(log, kernel))
@@ -394,6 +394,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
                    bound, B * lines_imads,
                    # X, Y of every top and of the added post-doubles, their inverses, P and Q
                    B * 21 * 4 * (4 * (ML.N_STEPS + n_adds) + 2 * (ML.N_STEPS + n_adds) + 6))
+    add_ptxas(results["lines"], ptxas_log, "k_lines")
     del tops, dbls, pq, z, prefix, tinv, stream
 
     # this slice's kernel modes, at the shapes of the K-pair and witness paths

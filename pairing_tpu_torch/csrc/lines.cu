@@ -10,82 +10,271 @@
 //   (cx, cy) likewise from the post-double; partner (qx, qy) = sign(d) Q
 //   chord    out2 = (qx - cx) Py, out3 = (cy - qy) Px, out5 = cx qy - qx cy
 //
-// Tangent rows go to tg[t] (slots 0, 3, 4); on a nonzero digit the chord
-// goes to ch[row] (slots 2, 3, 5), where sched[t] = (digit, row), so the
-// chord stream holds only the addition steps kernel C reads. The TPU ran
-// the Fq2 program on the fq2_vm interpreter with a per-step instruction
-// count to skip chord work; here the digit is uniform across the warp, so
-// the branch skips it without divergence.
+// Tangent rows go to tg[t] (slots 0, 3, 4). Chord c, the c-th step with a
+// nonzero digit, goes to ch[row] (slots 2, 3, 5); the wrapper's chord table
+// gives its (step, digit, row), so the chord stream holds only the
+// addition steps kernel C reads, in whatever row order it reads them.
 //
-// Bound on the H100: integer multiply-adds, about 11 Fq2 products per
-// tangent and 12 per chord, against up to 4 x 168 bytes read and 2 x 1008
-// bytes written per step and lane. One thread per lane.
+// Bound on the H100: integer multiply-adds. A tangent takes 3 Fq2 squares,
+// 4 Fq2 products and 4 Fq products, a chord 1, 5 and 4 (about 1.54 ms for
+// 16384 lanes over the Miller loop's 64 tangents and 25 chords, at the
+// least count), against 672 bytes read and 504 written per tangent and
+// lane, 1,008 and 504 per chord (about 0.44 ms, P and Q counted once a
+// lane). The TPU kernel had the steps as a grid axis. The first port ran
+// one thread per lane over all 64 steps: 512 warps for 16384 lanes, four
+// an SM, one a scheduler, 255 registers with spills, and nothing to hide
+// the latency of its 64-bit multiply-add chains (12.3% of its bound).
+//
+// Design: one thread per (line, lane). Steps are independent: line t reads
+// only its own top or post-double, its inverse, P and Q. blockIdx.y is the
+// line: y < n_steps is the tangent of step y, y = n_steps + c the chord c.
+// blockIdx.x is a block of 128 neighbouring lanes, so every load and store
+// of the batch-last rows coalesces, and a block's branches (tangent or
+// chord, the digit's sign) are uniform. No thread reads another's data: no
+// barrier, and a lane past the batch edge returns. 16384 lanes make 45,568
+// warps over the Miller loop's 89 lines.
+//
+// Each Fq2 product component sums its two Fq products in 32-bit columns
+// and reduces once (field32.cuh: each limb product is a 32-bit
+// multiply-add, the accumulator 42 registers). The bound there needs every
+// operand digit below 2^13. Every operand here is one of: a value from
+// load_fp, which carries on load (zi, X, Y, P, Q); an output of
+// w32_reduce, whose digits are masked to 13 bits (every product); an
+// output of fp_carry (fp2_sq's a0 + a1, a0 + 2p - a1 and 2 a0); or an
+// output of fp_neg or fp_sub, which carry and conditionally subtract (the
+// negated partners 2p - b1, qx - cx, cy - sqy). Each value is below 2p, so
+// each column sum is as bounded there.
+//
+// Code size: with every routine inlined, the kernel is 51,408 SASS
+// instructions (823 KB), far more than an SM's instruction cache holds;
+// that first design took 5.7 ms at 16384 lanes, twice this one's time. So
+// the Fq2 product, the Fq2 square and the one-product sum are out of line,
+// one body each called from every site: 12,344 instructions in all. A
+// call passes its operands through the thread's stack (ptxas's stack
+// frame, about 2 KB a thread, cached in L1).
+//
+// Registers: values that live across a call would be saved on that stack.
+// The two Fq2 values that wait across other products (zi^3 until y and
+// 3x^3 until the last output of a tangent; cx, and qx cy, in a chord) are
+// parked instead in the thread's own column of a shared-memory stash, 336
+// bytes a thread, 43,008 a block. __launch_bounds__(128, 2): 8 warps an
+// SM, no spills; asking for 12 or 16 warps caps the registers at 168 or
+// 128, spills, and ran slower.
+//
+// The operations, their operands' order and every reduction are those of
+// field.cuh's fp2_mul / fp2_sq / fp_mul / fp_small in the one-thread kernel
+// this replaces, and each computes the same integers, so the digits of
+// every output are those it wrote.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "field32.cuh"
 
 namespace pt {
 
-// (X zi^2, Y zi^3) from a Jacobian state row block and its inverse.
-static __device__ __noinline__ void affine(const int32_t* __restrict__ state,
-                                           const int32_t* __restrict__ zi_src, size_t n,
-                                           Fp2& x, Fp2& y) {
-  const Fp2 zi = load_fp2(zi_src, n);
-  const Fp2 zi2 = fp2_sq(zi);
-  const Fp2 zi3 = fp2_mul(zi2, zi);
-  x = fp2_mul(load_fp2(state, n), zi2);
-  y = fp2_mul(load_fp2(state + 2 * NL * n, n), zi3);
+constexpr int K_THREADS = 128;  // lanes per block
+constexpr int K_STASH = 2;      // Fq2 slots a thread parks in shared memory
+constexpr int K_STASH_WORDS = K_STASH * 2 * NL * K_THREADS;
+
+// a b, or a b + c d, Montgomery-reduced on 32-bit columns.
+static __device__ __noinline__ Fp mont(const Fp& a, const Fp& b) {
+  Wide32 w;
+  w32_zero(w);
+  w32_mac(w, a, b);
+  Fp r;
+  w32_reduce(w, r);
+  return r;
 }
 
-__global__ void __launch_bounds__(BLOCK)
+static __device__ __forceinline__ Fp mont(const Fp& a, const Fp& b, const Fp& c,
+                                          const Fp& d) {
+  Wide32 w;
+  w32_zero(w);
+  w32_mac(w, a, b);
+  w32_mac(w, c, d);
+  Fp r;
+  w32_reduce(w, r);
+  return r;
+}
+
+// field.cuh's fp2_mul: c0 = a0 b0 + a1 (2p - b1), c1 = a0 b1 + a1 b0; c1
+// first, so that b1 is dead once 2p - b1 is formed.
+static __device__ __noinline__ Fp2 mul(const Fp2& a, const Fp2& b) {
+  Fp2 r;
+  r.c1 = mont(a.c0, b.c1, a.c1, b.c0);
+  r.c0 = mont(a.c0, b.c0, a.c1, fp_neg(b.c1));
+  return r;
+}
+
+// field.cuh's fp2_sq: c0 = (a0 + a1)(a0 - a1 + 2p), c1 = (2 a0) a1.
+static __device__ __noinline__ Fp2 sq(const Fp2& a) {
+  Fp2 r;
+  {
+    Fp t;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) t.v[i] = 2 * a.c0.v[i];
+    fp_carry(t);
+    r.c1 = mont(t, a.c1);
+  }
+  Fp s, d;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    s.v[i] = a.c0.v[i] + a.c1.v[i];
+    d.v[i] = a.c0.v[i] + KP[KP_2][i] - a.c1.v[i];
+  }
+  fp_carry(s);
+  fp_carry(d);
+  r.c0 = mont(s, d);
+  return r;
+}
+
+template <uint32_t K>
+static __device__ __forceinline__ Fp2 small2(const Fp2& a) {
+  return Fp2{small<K>(a.c0), small<K>(a.c1)};
+}
+
+// This thread's column of the block's stash: slot s, component c, limb l at
+// base[((2 s + c) NL + l) K_THREADS], so a warp's 32 threads hit 32 banks.
+struct Stash {
+  uint32_t* base;
+
+  __device__ __forceinline__ void put(int s, const Fp2& x) const {
+    uint32_t* p = base + 2 * s * NL * K_THREADS;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      p[l * K_THREADS] = x.c0.v[l];
+      p[(NL + l) * K_THREADS] = x.c1.v[l];
+    }
+  }
+
+  __device__ __forceinline__ Fp2 get(int s) const {
+    const uint32_t* p = base + 2 * s * NL * K_THREADS;
+    Fp2 x;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      x.c0.v[l] = p[l * K_THREADS];
+      x.c1.v[l] = p[(NL + l) * K_THREADS];
+    }
+    return x;
+  }
+};
+
+// zi^2 from this lane's inverse at ``zi_src``; zi^3 parked in slot 0.
+static __device__ __forceinline__ Fp2 inverse_powers(const int32_t* __restrict__ zi_src,
+                                                     size_t n, const Stash& st) {
+  const Fp2 zi = load_fp2(zi_src, n);
+  const Fp2 zi2 = sq(zi);
+  st.put(0, mul(zi2, zi));
+  return zi2;
+}
+
+// Tangent of step t: (3x^3 - 2y^2) xi, 2y Py, -3x^2 Px at dst, dst + 2 rows,
+// dst + 4 rows (each row NL n words).
+static __device__ __forceinline__ void tangent(const int32_t* __restrict__ top,
+                                               const int32_t* __restrict__ zi_src,
+                                               const int32_t* __restrict__ pq,
+                                               int32_t* __restrict__ dst, size_t n,
+                                               const Stash& st) {
+  const size_t row = NL * n;
+  Fp2 x;
+  {
+    const Fp2 zi2 = inverse_powers(zi_src, n, st);
+    x = mul(load_fp2(top, n), zi2);
+  }
+  {
+    const Fp2 x_sq = sq(x);
+    Fp px;
+    load_fp(px, pq, n);
+    store_fp2(fp2_neg(Fp2{small<3>(mont(x_sq.c0, px)), small<3>(mont(x_sq.c1, px))}),
+              dst + 4 * row, n);
+    st.put(1, small2<3>(mul(x_sq, x)));
+  }
+  const Fp2 y = mul(load_fp2(top + 2 * row, n), st.get(0));
+  {
+    Fp py;
+    load_fp(py, pq + row, n);
+    store_fp2(Fp2{small<2>(mont(y.c0, py)), small<2>(mont(y.c1, py))}, dst + 2 * row, n);
+  }
+  store_fp2(fp2_mul_xi(fp2_sub(st.get(1), small2<2>(sq(y)))), dst, n);
+}
+
+// Component c of the partner's y: qy_c, negated when the digit is.
+static __device__ __forceinline__ Fp partner_y(const int32_t* __restrict__ qy, size_t n, int c,
+                                               bool neg) {
+  Fp v;
+  load_fp(v, qy + c * NL * n, n);
+  return neg ? fp_neg(v) : v;
+}
+
+// Chord of the post-double at ``dbl`` with the partner sign(d) Q: (qx - cx)
+// Py, (cy - sqy) Px, cx sqy - qx cy at dst, dst + 2 rows, dst + 4 rows.
+static __device__ __forceinline__ void chord(const int32_t* __restrict__ dbl,
+                                             const int32_t* __restrict__ zi_src,
+                                             const int32_t* __restrict__ pq, bool neg,
+                                             int32_t* __restrict__ dst, size_t n,
+                                             const Stash& st) {
+  const size_t row = NL * n;
+  const int32_t* qx = pq + 2 * row;
+  const int32_t* qy = pq + 4 * row;
+  {
+    const Fp2 zi2 = inverse_powers(zi_src, n, st);
+    const Fp2 cx = mul(load_fp2(dbl, n), zi2);
+    st.put(1, cx);
+    Fp py;
+    load_fp(py, pq + row, n);
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c) {
+      Fp q;
+      load_fp(q, qx + c * row, n);
+      store_fp(mont(fp_sub(q, c ? cx.c1 : cx.c0), py), dst + c * row, n);
+    }
+  }
+  {
+    const Fp2 cy = mul(load_fp2(dbl + 2 * row, n), st.get(0));
+    Fp px;
+    load_fp(px, pq, n);
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c)
+      store_fp(mont(fp_sub(c ? cy.c1 : cy.c0, partner_y(qy, n, c, neg)), px),
+               dst + (2 + c) * row, n);
+    st.put(0, mul(load_fp2(qx, n), cy));
+  }
+  const Fp2 sqy{partner_y(qy, n, 0, neg), partner_y(qy, n, 1, neg)};
+  store_fp2(fp2_sub(mul(st.get(1), sqy), st.get(0)), dst + 4 * row, n);
+}
+
+// chords[3 c .. 3 c + 2] = (step, digit, row) of chord c.
+__global__ void __launch_bounds__(K_THREADS, 2)
 k_lines(const int32_t* __restrict__ tops, const int32_t* __restrict__ dbls,
         const int32_t* __restrict__ zinv, const int32_t* __restrict__ pq,
-        const int32_t* __restrict__ sched, int n_steps, int32_t* __restrict__ tg,
+        const int32_t* __restrict__ chords, int n_steps, int32_t* __restrict__ tg,
         int32_t* __restrict__ ch, int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ uint32_t stash[K_STASH_WORDS];
+  const int lane = blockIdx.x * K_THREADS + threadIdx.x;
   if (lane >= lanes) return;
   const size_t n = (size_t)lanes;
-  const size_t state_words = 6 * NL * n;
-  const size_t zi_words = 2 * NL * n;
-  Fp px, py;
-  load_fp(px, pq + lane, n);
-  load_fp(py, pq + NL * n + lane, n);
-  const Fp2 qx = load_fp2(pq + 2 * NL * n + lane, n);
-  const Fp2 qy = load_fp2(pq + 4 * NL * n + lane, n);
-  const Fp2 nqy = fp2_neg(qy);
-#pragma unroll 1
-  for (int t = 0; t < n_steps; ++t) {
-    Fp2 x, y;
-    affine(tops + t * state_words + lane, zinv + t * zi_words + lane, n, x, y);
-    const Fp2 x_sq = fp2_sq(x);
-    const Fp2 three_x_cu = fp2_small(fp2_mul(x_sq, x), 3);
-    const Fp2 two_y_sq = fp2_small(fp2_sq(y), 2);
-    int32_t* dst = tg + t * state_words + lane;
-    store_fp2(fp2_mul_xi(fp2_sub(three_x_cu, two_y_sq)), dst, n);
-    store_fp2(fp2_small(fp2_mul_fp(y, py), 2), dst + 2 * NL * n, n);
-    store_fp2(fp2_neg(fp2_small(fp2_mul_fp(x_sq, px), 3)), dst + 4 * NL * n, n);
-
-    const int d = __ldg(sched + 2 * t);
-    if (d == 0) continue;
-    Fp2 cx, cy;
-    affine(dbls + t * state_words + lane, zinv + (n_steps + t) * zi_words + lane, n, cx, cy);
-    const Fp2& sqy = d > 0 ? qy : nqy;  // partner y: Q or -Q
-    dst = ch + __ldg(sched + 2 * t + 1) * state_words + lane;
-    store_fp2(fp2_mul_fp(fp2_sub(qx, cx), py), dst, n);
-    store_fp2(fp2_mul_fp(fp2_sub(cy, sqy), px), dst + 2 * NL * n, n);
-    store_fp2(fp2_sub(fp2_mul(cx, sqy), fp2_mul(qx, cy)), dst + 4 * NL * n, n);
+  const size_t state = 6 * NL * n, inv = 2 * NL * n;  // words of a state row block, an inverse
+  const Stash st{stash + threadIdx.x};
+  const int line = blockIdx.y;
+  if (line < n_steps) {
+    tangent(tops + line * state + lane, zinv + line * inv + lane, pq + lane,
+            tg + line * state + lane, n, st);
+  } else {
+    const int32_t* tab = chords + 3 * (line - n_steps);
+    const int t = __ldg(tab), d = __ldg(tab + 1), r = __ldg(tab + 2);
+    chord(dbls + t * state + lane, zinv + (n_steps + t) * inv + lane, pq + lane, d < 0,
+          ch + r * state + lane, n, st);
   }
 }
 
 }  // namespace pt
 
 extern "C" int pt_lines(const int32_t* tops, const int32_t* dbls, const int32_t* zinv,
-                        const int32_t* pq, const int32_t* sched, int n_steps, int32_t* tg,
-                        int32_t* ch, int lanes, void* stream) {
-  if (lanes > 0) {
-    const int blocks = (lanes + pt::BLOCK - 1) / pt::BLOCK;
-    pt::k_lines<<<blocks, pt::BLOCK, 0, (cudaStream_t)stream>>>(tops, dbls, zinv, pq, sched,
-                                                               n_steps, tg, ch, lanes);
+                        const int32_t* pq, const int32_t* chords, int n_steps, int n_chords,
+                        int32_t* tg, int32_t* ch, int lanes, void* stream) {
+  if (lanes > 0 && n_steps + n_chords > 0) {
+    const dim3 grid((lanes + pt::K_THREADS - 1) / pt::K_THREADS, n_steps + n_chords);
+    pt::k_lines<<<grid, pt::K_THREADS, 0, (cudaStream_t)stream>>>(tops, dbls, zinv, pq, chords,
+                                                                  n_steps, tg, ch, lanes);
   }
   return (int)cudaGetLastError();
 }

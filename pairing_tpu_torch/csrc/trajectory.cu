@@ -41,7 +41,8 @@
 // the current stage. The accumulator's columns are 32-bit: with 13-bit
 // digits an Fq2 component's column sum, reduction included, stays below
 // 2^32, so each limb product is one 32-bit multiply-add where field.cuh
-// issues a 64-bit one (IMAD.WIDE), at half the registers.
+// issues a 64-bit one (IMAD.WIDE), at half the registers (field32.cuh,
+// shared with kernel K).
 //
 // Each stage writes the components that the next stage reads whole; a
 // __syncwarp follows, and every thread reaches every barrier: a lane past
@@ -56,7 +57,7 @@
 // the digits of every output are those it wrote.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "field32.cuh"
 
 namespace pt {
 
@@ -84,44 +85,6 @@ static __device__ __forceinline__ void st(const Fp& x, uint32_t* s, int comp) {
   uint32_t* p = s + comp * H_COMP;
 #pragma unroll
   for (int l = 0; l < NL; ++l) p[l * H_LANES] = x.v[l];
-}
-
-// Column sums in 32 bits. Every operand here has digits below 2^13 (each
-// value is an output of field.cuh's carried routines or of load_fp), so a
-// column of two products' limb products (at most 42 terms below 2^26), its
-// 21 reduction terms m * p_j and one carry (below 2^19) stays below
-// 4.11e9 < 2^32: the sums are the 64-bit ones of wide_mac / mont_reduce,
-// exactly, in half the registers and with 32-bit multiply-adds.
-struct Wide32 { uint32_t t[2 * NL]; };
-
-static __device__ __forceinline__ void w32_zero(Wide32& w) {
-#pragma unroll
-  for (int i = 0; i < 2 * NL; ++i) w.t[i] = 0;
-}
-
-static __device__ __forceinline__ void w32_mac(Wide32& w, const Fp& a, const Fp& b) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i)
-#pragma unroll
-    for (int j = 0; j < NL; ++j) w.t[i + j] += a.v[i] * b.v[j];
-}
-
-// mont_reduce on 32-bit columns.
-static __device__ __forceinline__ void w32_reduce(Wide32& w, Fp& r) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    const uint32_t m = (w.t[i] * NP0) & MASK;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) w.t[i + j] += m * KP[KP_1][j];
-    w.t[i + 1] += w.t[i] >> RB;
-  }
-  uint32_t c = 0;
-#pragma unroll
-  for (int k = 0; k < NL; ++k) {
-    const uint32_t s = w.t[NL + k] + c;
-    r.v[k] = s & MASK;
-    c = s >> RB;
-  }
 }
 
 // w += x times the component of the slot b that fp2_mul pairs with
@@ -188,22 +151,6 @@ static __device__ __forceinline__ Fp sq_of(const Fp& a0, const Fp& a1, int h) {
   w32_mac(w, x, y);
   Fp r;
   w32_reduce(w, r);
-  return r;
-}
-
-// fp_small(a, K) for a < 2p: K a < 2K p, so of fp_reduce32's conditional
-// subtractions of 16p, 8p, 4p and 2p only those below 2K p can apply; the
-// others are skipped. Same result, fewer carry chains.
-template <uint32_t K>
-static __device__ __forceinline__ Fp small(const Fp& a) {
-  static_assert(K >= 2 && K <= 8, "K a must stay below 16p");
-  Fp r;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) r.v[i] = a.v[i] * K;
-  fp_carry(r);
-  if (K > 4) fp_cond_sub(r, KP_8);
-  if (K > 2) fp_cond_sub(r, KP_4);
-  fp_cond_sub(r, KP_2);
   return r;
 }
 

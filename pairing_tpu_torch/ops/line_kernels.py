@@ -7,11 +7,14 @@ inverses zinv [>= 2n, 2, NLIMBS, B] (tops at [t], post-doubles at [n + t]),
 and pq [6, NLIMBS, B] = (px, py, qx.c0, qx.c1, qy.c0, qy.c1). Outputs: the
 tangent lines tg [n, 6, NLIMBS, B] (slots 0, 3, 4) and, for each step with
 a nonzero digit, its chord at ch[ch_rows[t]] (slots 2, 3, 5), the operands
-of kernel C.
+of kernel C. The kernel runs one thread per (line, lane); its chord table,
+(step, digit, row) for each step with a nonzero digit, is built once per
+schedule and device.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -38,6 +41,17 @@ def line_schedule(digits: Sequence[int], ch_rows: Sequence[int], n_ch: int) -> n
                 raise ValueError(f"step {t}: chord row {r} outside [0, {n_ch})")
             sched[t, 1] = int(r)
     return sched
+
+
+@lru_cache(maxsize=None)
+def chord_table(digits: tuple, ch_rows: tuple, n_ch: int, device: torch.device) -> torch.Tensor:
+    """The kernel's chord table, int32 [n_chords, 3] on ``device``: (step,
+    digit, row) of each step with a nonzero digit, in step order: the rows
+    of ``line_schedule`` that have a chord, with their steps."""
+    sched = line_schedule(digits, ch_rows, n_ch)
+    steps = np.flatnonzero(sched[:, 0])
+    tab = np.column_stack([steps, sched[steps]]).astype(np.int32)
+    return torch.as_tensor(tab.reshape(-1, 3), device=device)
 
 
 def affine(state: torch.Tensor, zi: torch.Tensor):
@@ -82,12 +96,12 @@ def lines_plain(tops, dbls, zinv, pq, sched: np.ndarray, n_ch: int):
 def lines(tops, dbls, zinv, pq, digits: Sequence[int], ch_rows: Sequence[int], n_ch: int):
     """(tg [n, 6, NLIMBS, B], ch [n_ch, 6, NLIMBS, B]) for the n = len(digits)
     steps; chord rows that no step writes are unspecified."""
-    sched = line_schedule(digits, ch_rows, n_ch)
-    n = len(sched)
+    n = len(digits)
     if tops.shape[0] < n or dbls.shape[0] < n or zinv.shape[0] < 2 * n:
         raise ValueError("fewer trajectory or inverse rows than steps")
     if not dispatch.on_cuda(tops, dbls, zinv, pq):
-        return lines_plain(tops, dbls, zinv, pq, sched, n_ch)
+        return lines_plain(tops, dbls, zinv, pq, line_schedule(digits, ch_rows, n_ch), n_ch)
+    chords = chord_table(tuple(map(int, digits)), tuple(map(int, ch_rows)), n_ch, tops.device)
     lanes = tops.shape[-1]
     dispatch.check_operand(tops, "tops", (tops.shape[0], 6), lanes)
     dispatch.check_operand(dbls, "dbls", (dbls.shape[0], 6), lanes)
@@ -96,5 +110,5 @@ def lines(tops, dbls, zinv, pq, digits: Sequence[int], ch_rows: Sequence[int], n
     opts = dict(dtype=torch.int32, device=tops.device)
     tg = torch.empty((n, 6, F.NLIMBS, lanes), **opts)
     ch = torch.empty((n_ch, 6, F.NLIMBS, lanes), **opts)
-    LINES(tops, dbls, zinv, pq, torch.as_tensor(sched, device=tops.device), n, tg, ch, lanes)
+    LINES(tops, dbls, zinv, pq, chords, n, chords.shape[0], tg, ch, lanes)
     return tg, ch

@@ -168,19 +168,38 @@ def test_batch_inversion_kernels_match_plain(gen, lanes):
     assert_same(NK.running_inverse(z, prefix, tinv), NK.running_inverse_plain(z, prefix, tinv))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
-def test_lines_kernel_matches_plain(gen, lanes):
+#: Lane counts that cut kernel K's 128-lane blocks.
+LINES_LANE_COUNTS = [1, 127, 128, 129, 1029, 2048]
+
+
+@pytest.mark.parametrize("schedule", ["miller", "runs_rows_reversed"])
+@pytest.mark.parametrize("lanes", LINES_LANE_COUNTS)
+def test_lines_kernel_matches_plain(gen, lanes, schedule):
+    """Kernel K, one thread per (line, lane), on the Miller loop's schedule
+    and on RUN_DIGITS with its chords written to the rows in reverse step
+    order."""
     from pairing_tpu_torch.ops import line_kernels as LK
     from pairing_tpu_torch.pairing import miller_loop as ML
 
-    tops = rand_kf12((ML.N_STEPS, 6), lanes, gen)
-    dbls = rand_kf12((ML.N_STEPS, 6), lanes, gen)
-    zinv = rand_kf12((2 * ML.N_STEPS + 2, 2), lanes, gen)
+    if schedule == "miller":
+        digits, rows, n_ch = list(ML.STEP_DIGITS), list(ML.CHORD_ROWS[:ML.N_STEPS]), ML.N_ADDS
+    else:
+        digits = RUN_DIGITS
+        chords = [t for t, d in enumerate(digits) if d]
+        n_ch = len(chords)
+        rows = [-1] * len(digits)
+        for c, t in enumerate(chords):
+            rows[t] = n_ch - 1 - c
+    n = len(digits)
+    tops = rand_kf12((n, 6), lanes, gen)
+    dbls = rand_kf12((n, 6), lanes, gen)
+    zinv = rand_kf12((2 * n + 2, 2), lanes, gen)
     pq = rand_kf12((6,), lanes, gen)
-    rows = ML.CHORD_ROWS[:ML.N_STEPS]
-    sched = LK.line_schedule(ML.STEP_DIGITS, rows, ML.N_ADDS)
-    assert_same(LK.lines(tops, dbls, zinv, pq, ML.STEP_DIGITS, rows, ML.N_ADDS),
-                LK.lines_plain(tops, dbls, zinv, pq, sched, ML.N_ADDS))
+    sched = LK.line_schedule(digits, rows, n_ch)
+    before = LK.LINES.launches
+    got = LK.lines(tops, dbls, zinv, pq, digits, rows, n_ch)
+    assert LK.LINES.launches == before + 1
+    assert_same(got, LK.lines_plain(tops, dbls, zinv, pq, sched, n_ch))
 
 
 def test_pairing_on_card_matches_oracle(gen):

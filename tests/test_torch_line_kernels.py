@@ -17,6 +17,7 @@ from pairing_tpu.fields import fp as JF
 from pairing_tpu.fields import fp2 as JF2
 from pairing_tpu.pairing import lines as JL
 from pairing_tpu_torch.fields import fp as TF
+from pairing_tpu_torch.fields import fp2 as TF2
 from pairing_tpu_torch.ops import fq12_kernels as FK
 from pairing_tpu_torch.ops import line_kernels as LK
 from pairing_tpu_torch.utils import bn254 as c
@@ -99,6 +100,9 @@ def test_lines_plain_matches_jax():
 
 def test_line_schedule():
     assert LK.line_schedule(DIGITS, CH_ROWS, N_CH).tolist() == [[1, 2], [0, 0], [-1, 0], [1, 1]]
+    # the kernel's chord table: (step, digit, row) of each step with a chord
+    table = LK.chord_table(tuple(DIGITS), tuple(CH_ROWS), N_CH, torch.device("cpu"))
+    assert table.dtype == torch.int32 and table.tolist() == [[0, 1, 2], [2, -1, 0], [3, 1, 1]]
     with pytest.raises(ValueError):
         LK.line_schedule([1, 0], [3, -1], 3)  # chord row outside the chord stream
     with pytest.raises(ValueError):
@@ -106,3 +110,119 @@ def test_line_schedule():
     z = torch.zeros((2, 6, TF.NLIMBS, 1), dtype=torch.int32)
     with pytest.raises(ValueError):
         LK.lines(z, z, z[:, :2], z[0], [1, 1], [0, 1], 2)  # fewer inverses than 2n
+
+
+# ---------------------------------------------------------------------------
+# The 32-bit column sums of kernels H and K (csrc/field32.cuh), modelled in
+# numpy. A component of an Fq2 product sums two Fq products' limb products
+# into 42 columns and reduces word by word (w32_mac, w32_reduce); a square's
+# component, or a product by an Fq element, sums one. The kernels keep each
+# column in 32 bits, which is exact only while every column stays below
+# 2^32: here the columns are uint64 and each is checked against 2^32 after
+# every addition. Operands are carried as load_fp carries them, so each
+# digit is below 2^13 (asserted); the result must be the field library's,
+# digit for digit after an exact carry.
+# ---------------------------------------------------------------------------
+
+NL = TF.NLIMBS
+NP0 = (-pow(c.P, -1, 1 << TF.RADIX_BITS)) % (1 << TF.RADIX_BITS)
+P_DIGITS = np.asarray(TF.int_to_limbs(c.P), np.uint64)
+COLUMN_LIMIT = np.uint64(1 << 32)
+
+
+def digits(vals) -> np.ndarray:
+    """Ints in [0, 2^273) -> carried digits [B, NL] (what fp_carry leaves)."""
+    return np.stack([TF.int_to_limbs(int(v)) for v in vals]).astype(np.uint64)
+
+
+def value(d) -> list:
+    return [TF.limbs_to_int(row) for row in np.asarray(d, dtype=object)]
+
+
+def w32_mont(pairs) -> np.ndarray:
+    """sum a_k b_k over ``pairs`` of carried digits [B, NL], reduced as
+    w32_mac / w32_reduce do: r = (t + m p) / R, digits [B, NL]."""
+    w = np.zeros((pairs[0][0].shape[0], 2 * NL), np.uint64)
+    for a, b in pairs:
+        assert (a < TF.RADIX).all() and (b < TF.RADIX).all()  # the columns' precondition
+        for i in range(NL):
+            w[:, i:i + NL] += a[:, i:i + 1] * b
+            assert (w < COLUMN_LIMIT).all()
+    mask = np.uint64(TF.MASK)
+    for i in range(NL):
+        m = (w[:, i] * np.uint64(NP0)) & mask
+        w[:, i:i + NL] += m[:, None] * P_DIGITS
+        assert (w < COLUMN_LIMIT).all()
+        w[:, i + 1] += w[:, i] >> np.uint64(TF.RADIX_BITS)
+        assert (w[:, i + 1] < COLUMN_LIMIT).all()
+    r = np.zeros((w.shape[0], NL), np.uint64)
+    carry = np.zeros(w.shape[0], np.uint64)
+    for k in range(NL):
+        s = w[:, NL + k] + carry
+        assert (s < COLUMN_LIMIT).all()
+        r[:, k] = s & mask
+        carry = s >> np.uint64(TF.RADIX_BITS)
+    assert (carry == 0).all()
+    return r
+
+
+def model_neg(b) -> np.ndarray:
+    """fp_neg: 2p - b, less 2p where that is 2p."""
+    return digits([(2 * c.P - v) % (2 * c.P) for v in value(b)])
+
+
+def model_fp2_mul(a0, a1, b0, b1):
+    return (w32_mont([(a0, b0), (a1, model_neg(b1))]), w32_mont([(a0, b1), (a1, b0)]))
+
+
+def model_fp2_sq(a0, a1):
+    va0, va1 = value(a0), value(a1)
+    s = digits([x + y for x, y in zip(va0, va1)])
+    d = digits([x + 2 * c.P - y for x, y in zip(va0, va1)])
+    return (w32_mont([(s, d)]), w32_mont([(digits([2 * x for x in va0]), a1)]))
+
+
+def model_fp2_mul_fp(a0, a1, k):
+    return (w32_mont([(a0, k)]), w32_mont([(a1, k)]))
+
+
+def operand_limbs(rng, kind: str, n: int) -> np.ndarray:
+    """Raw limbs [n, NL] of values below 2p: random; all 2p - 1; or random
+    values below p with one limb settled at 2^13 + 1 (a carry moved down)."""
+    if kind == "two_p_minus_1":
+        return digits([2 * c.P - 1] * n).astype(np.int64)
+    top = c.P if kind == "settled" else 2 * c.P
+    vals = [int.from_bytes(rng.bytes(40), "little") % top for _ in range(n)]
+    limbs = digits(vals).astype(np.int64)
+    if kind == "settled":
+        for row in limbs:  # the value moves by at most 1 and stays below 2p
+            i = int(rng.choice(np.flatnonzero(row[1:]) + 1))
+            row[i] -= 1
+            row[i - 1] = TF.RADIX + 1
+    return limbs
+
+
+@pytest.mark.parametrize("kind", ["random", "two_p_minus_1", "settled"])
+def test_w32_columns_match_field_library(kind):
+    """The 32-bit Montgomery sums of kernels H and K, one Fq2 component at a
+    time, against F2.mul, F2.square and F2.mul_fp: columns below 2^32, the
+    same digits."""
+    rng = np.random.default_rng({"random": 801, "two_p_minus_1": 802, "settled": 803}[kind])
+    n = 48
+    raw = [operand_limbs(rng, kind, n) for _ in range(5)]
+    if kind == "settled":
+        assert max(int(r.max()) for r in raw) == TF.RADIX + 1
+    # load_fp's carry: the same values, digits below 2^13
+    a0, a1, b0, b1, k = (digits(value(r)) for r in raw)
+    fa0, fa1, fb0, fb1, fk = (TF.Fp(torch.as_tensor(r, dtype=torch.int32), 2 * c.P, TF.SETTLED)
+                              for r in raw)
+    A, Bv = TF2.Fp2(fa0, fa1), TF2.Fp2(fb0, fb1)
+
+    def lib(fp2):
+        return [TF._ripple_carry(x.limbs)[0].numpy().astype(np.uint64) for x in (fp2.c0, fp2.c1)]
+
+    for got, want in ((model_fp2_mul(a0, a1, b0, b1), lib(TF2.mul(A, Bv))),
+                      (model_fp2_sq(a0, a1), lib(TF2.square(A))),
+                      (model_fp2_mul_fp(a0, a1, k), lib(TF2.mul_fp(A, fk)))):
+        for g, w in zip(got, want, strict=True):
+            assert np.array_equal(g, w)
