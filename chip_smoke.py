@@ -50,11 +50,14 @@ toolkit (nvcc). It
 Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
-redesigned kernels, C (all three modes) and D (six threads a lane), H (two)
-and K (one thread per line and lane), in the JSON line also carry their
+redesigned kernels, A (both modes; one thread per output component and
+lane), C (all three modes) and D (six threads a lane), H and J (two) and K
+(one thread per line and lane), in the JSON line also carry their
 registers, stack, spill and shared bytes per block from this build's
 ptxas report (H's shared memory is dynamic, so its report shows none; its
-entry gives the bytes it asks for at launch).
+entry gives the bytes it asks for at launch); J's also carries its time at
+the K = 4 path's 65,536 lanes. Every kernel's line gives its share of its
+bound.
 Launch counts are set to 0 just before each of the paths of steps 3-7 and
 read just after; every kernel the path runs must have launched in it.
 
@@ -258,9 +261,9 @@ def compare_kernel(name, kernel_fn, plain_fn, results, bound, imads, in_bytes, c
                      "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                      "launches_by_path": {}}
-    print(f"{name}: equal to plain, envelope ok; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound_ms:.3f} ms ({bound_by}) per call (lanes {got[0].shape[-1]})",
-          flush=True)
+    print(f"{name}: equal to plain, envelope ok; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it, per call "
+          f"(lanes {got[0].shape[-1]})", flush=True)
 
 
 def ptxas_entry(log: str, kernel: str) -> dict:
@@ -292,6 +295,27 @@ def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0) -> No
           f"{entry['shared_bytes_per_block']} B shared per block (ptxas, {kernel})", flush=True)
 
 
+def running_inverse_wide(entry: dict, rand, bound, n_steps: int) -> None:
+    """Kernel J at the K = 4 path's 65,536 lanes: equal to its plain version,
+    timed, into its entry."""
+    from pairing_tpu_torch.ops import norm_kernels as NK
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical
+
+    lanes = K_PAIRS * BATCH
+    z, prefix = rand(n_steps, 2, lanes=lanes), rand(n_steps, 2, lanes=lanes)
+    tinv = rand(2, lanes=lanes)
+    got = NK.running_inverse(z, prefix, tinv)
+    want = NK.running_inverse_plain(z, prefix, tinv)
+    check(torch.equal(kf12_canonical(got), kf12_canonical(want)),
+          f"running_inverse differs from its plain version at {lanes} lanes")
+    del want
+    ms = timed_ms(lambda: NK.running_inverse(z, prefix, tinv), KERNEL_REPS)
+    bound_ms, _ = bound(lanes * 2 * n_steps * FP2_MUL, nbytes((z, prefix, tinv, got)))
+    entry["ms_65536_lanes"], entry["bound_ms_65536_lanes"] = ms, bound_ms
+    print(f"running_inverse at {lanes} lanes: equal to plain; kernel {ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it", flush=True)
+
+
 def kernel_phases(results, bound, ptxas_log: str) -> None:
     from pairing_tpu_torch.ops import build
     from pairing_tpu_torch.ops import curve_kernels as CK
@@ -317,6 +341,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     a, b = rand(12), rand(12)
     compare_kernel("fq12_mul", lambda: FK.fq12_mul(a, b), lambda: FK.fq12_mul_plain(a, b),
                    results, bound, B * FQ12_DENSE, nbytes((a, b)))
+    add_ptxas(results["fq12_mul"], ptxas_log, "k_fq12_mul")
 
     m = FE.easy_part_k(a)  # cyclotomic-subgroup inputs for B, D and K12
     compare_kernel("fq12_cyc_sq", lambda: KL.kcyc_sq(m), lambda: KL.kcyc_sq_plain(m),
@@ -382,6 +407,8 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("running_inverse", lambda: NK.running_inverse(z, prefix, tinv),
                    lambda: NK.running_inverse_plain(z, prefix, tinv), results, bound,
                    B * 2 * z.shape[0] * FP2_MUL, nbytes((z, prefix, tinv)))
+    add_ptxas(results["running_inverse"], ptxas_log, "k_running_inverse")
+    running_inverse_wide(results["running_inverse"], rand, bound, z.shape[0])
 
     tops, dbls, zinv, pq = rand(ML.N_STEPS, 6), rand(ML.N_STEPS, 6), z, rand(6)
     ch_rows = ML.CHORD_ROWS[:ML.N_STEPS]
@@ -425,6 +452,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
                    results, bound, len(LINE_SHAPES) * B * FQ12_SPARSE,
                    len(LINE_SHAPES) * nbytes((a,)) + sum(nbytes((ln,)) // 2 for ln in lines),
                    calls=len(LINE_SHAPES))
+    add_ptxas(results["fq12_mul_sparse"], ptxas_log, "k_fq12_mul")
     del lines
 
     mc = KL.kconj(m)

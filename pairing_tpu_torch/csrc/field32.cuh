@@ -32,6 +32,20 @@ static __device__ __forceinline__ void w32_mac(Wide32& w, const Fp& a, const Fp&
     for (int j = 0; j < NL; ++j) w.t[i + j] += a.v[i] * b.v[j];
 }
 
+// Carry-save fold for sums of more than two Fq products (kernel A): each
+// column keeps its low 13 bits and passes the rest one column up, all
+// columns at once (every new column reads only old ones: no ripple). The
+// integer sum is unchanged; a column leaves below 2^13 + 2^19 (its carry-in
+// is below 2^32 >> 13), so two more Fq products fit beside it. Column 41
+// takes no limb product and stays small: the whole sum is below 2^533.
+static __device__ __forceinline__ void w32_fold(Wide32& w) {
+#pragma unroll
+  for (int i = 2 * NL - 2; i >= 0; --i) {
+    w.t[i + 1] += w.t[i] >> RB;
+    w.t[i] &= MASK;
+  }
+}
+
 // mont_reduce on 32-bit columns.
 static __device__ __forceinline__ void w32_reduce(Wide32& w, Fp& r) {
 #pragma unroll

@@ -53,7 +53,12 @@ def assert_same(got, want):
         assert torch.equal(kf12_canonical(g), kf12_canonical(w))
 
 
-@pytest.mark.parametrize("lanes", [1, 129, 2048])
+#: Kernel A runs 32 lanes a block, one warp per output component: these
+#: lane counts cut a block at the edge (16391 = 512 blocks and 7 lanes).
+FQ12_MUL_LANE_COUNTS = [1, 31, 32, 33, 129, 2048, 16391]
+
+
+@pytest.mark.parametrize("lanes", FQ12_MUL_LANE_COUNTS)
 def test_fq12_mul_kernel_matches_plain(gen, lanes):
     from pairing_tpu_torch.ops import fq12_kernels as FK
 
@@ -166,6 +171,25 @@ def test_batch_inversion_kernels_match_plain(gen, lanes):
     assert_same((prefix, total), NK.prefix_products_plain(z))
     tinv = rand_kf12((2,), lanes, gen)
     assert_same(NK.running_inverse(z, prefix, tinv), NK.running_inverse_plain(z, prefix, tinv))
+
+
+#: Kernel J runs four threads a lane, 8 lanes a warp, 32 a block: lane
+#: counts that cut a warp and a block, the main path's 16384 and the K = 4
+#: path's 65,536 (plus 3).
+RUNNING_INVERSE_LANE_COUNTS = [1, 8, 15, 16, 17, 33, 16384, 65539]
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 130])
+@pytest.mark.parametrize("lanes", RUNNING_INVERSE_LANE_COUNTS)
+def test_running_inverse_kernel_matches_plain(gen, lanes, n_steps):
+    from pairing_tpu_torch.ops import norm_kernels as NK
+
+    z, prefix = rand_kf12((n_steps, 2), lanes, gen), rand_kf12((n_steps, 2), lanes, gen)
+    tinv = rand_kf12((2,), lanes, gen)
+    before = NK.RUNNING_INVERSE.launches
+    got = NK.running_inverse(z, prefix, tinv)
+    assert NK.RUNNING_INVERSE.launches == before + 1
+    assert_same(got, NK.running_inverse_plain(z, prefix, tinv))
 
 
 #: Lane counts that cut kernel K's 128-lane blocks.
@@ -335,6 +359,20 @@ def test_fq12_mul_sparse_kernel_matches_plain(gen, lanes, present):
     dense, before = FK.FQ12_MUL.launches, FK.FQ12_MUL_SPARSE.launches
     got = FK.fq12_mul_sparse(a, present, b)
     assert FK.FQ12_MUL_SPARSE.launches == before + 1 and FK.FQ12_MUL.launches == dense
+    assert_same(got, FK.fq12_mul_sparse_plain(a, present, b))
+
+
+@pytest.mark.parametrize("mask", range(1, 64))
+def test_fq12_mul_sparse_every_mask_matches_plain(gen, mask):
+    """Kernel A's sparse mode for every set of present slots of b, at 37
+    lanes (a block and 5 lanes): a uniform branch skips each absent slot."""
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+
+    present = tuple(j for j in range(6) if mask >> j & 1)
+    a, b = rand_kf12((12,), 37, gen), rand_kf12((12,), 37, gen)
+    before = FK.FQ12_MUL_SPARSE.launches
+    got = FK.fq12_mul_sparse(a, present, b)
+    assert FK.FQ12_MUL_SPARSE.launches == before + 1
     assert_same(got, FK.fq12_mul_sparse_plain(a, present, b))
 
 

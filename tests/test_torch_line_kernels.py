@@ -6,7 +6,9 @@ Random Jacobian states, inverses and P/Q coordinates go through
 digit schedule. Each tangent row, and the chord row of each step with a
 nonzero digit, must equal the JAX package's ``pairing.lines.line_equal`` /
 ``line_unequal`` on the affine points (X zi^2, Y zi^3) computed by its own
-field ops, exactly (canonical values).
+field ops, exactly (canonical values). The file also holds numpy models of
+the 32-bit column sums of kernels H, K (Fq2 products) and A (Fq12
+products, folded between terms).
 """
 
 import numpy as np
@@ -139,15 +141,16 @@ def value(d) -> list:
     return [TF.limbs_to_int(row) for row in np.asarray(d, dtype=object)]
 
 
-def w32_mont(pairs) -> np.ndarray:
-    """sum a_k b_k over ``pairs`` of carried digits [B, NL], reduced as
-    w32_mac / w32_reduce do: r = (t + m p) / R, digits [B, NL]."""
-    w = np.zeros((pairs[0][0].shape[0], 2 * NL), np.uint64)
-    for a, b in pairs:
-        assert (a < TF.RADIX).all() and (b < TF.RADIX).all()  # the columns' precondition
-        for i in range(NL):
-            w[:, i:i + NL] += a[:, i:i + 1] * b
-            assert (w < COLUMN_LIMIT).all()
+def w32_mac(w, a, b) -> None:
+    """w += a b for carried digits [B, NL], one limb row at a time."""
+    assert (a < TF.RADIX).all() and (b < TF.RADIX).all()  # the columns' precondition
+    for i in range(NL):
+        w[:, i:i + NL] += a[:, i:i + 1] * b
+        assert (w < COLUMN_LIMIT).all()
+
+
+def w32_reduce(w) -> np.ndarray:
+    """w32_reduce: r = (t + m p) / R from the columns w [B, 2 NL], digits [B, NL]."""
     mask = np.uint64(TF.MASK)
     for i in range(NL):
         m = (w[:, i] * np.uint64(NP0)) & mask
@@ -164,6 +167,15 @@ def w32_mont(pairs) -> np.ndarray:
         carry = s >> np.uint64(TF.RADIX_BITS)
     assert (carry == 0).all()
     return r
+
+
+def w32_mont(pairs) -> np.ndarray:
+    """sum a_k b_k over ``pairs`` of carried digits [B, NL], reduced as
+    w32_mac / w32_reduce do: r = (t + m p) / R, digits [B, NL]."""
+    w = np.zeros((pairs[0][0].shape[0], 2 * NL), np.uint64)
+    for a, b in pairs:
+        w32_mac(w, a, b)
+    return w32_reduce(w)
 
 
 def model_neg(b) -> np.ndarray:
@@ -226,3 +238,98 @@ def test_w32_columns_match_field_library(kind):
                       (model_fp2_mul_fp(a0, a1, k), lib(TF2.mul_fp(A, fk)))):
         for g, w in zip(got, want, strict=True):
             assert np.array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A (csrc/fq12_mul.cu): one thread per output component k = 2s + comp
+# sums the Fq2 terms a_i b_j over the present slots j of b (i = s - j mod
+# 6, xi * a_i when i > s), each as two Fq products into 32-bit columns, with
+# a carry-save fold (w32_fold) between terms, and reduces once.
+# ---------------------------------------------------------------------------
+
+R_MONT = 1 << (NL * TF.RADIX_BITS)
+
+
+def a_terms(k: int, mask: int):
+    """The (i, j, fold) of component k's Fq2 terms, in the kernel's order."""
+    s = k >> 1
+    for i in range(6):
+        fold = i > s
+        j = s - i + 6 if fold else s - i
+        if mask >> j & 1:
+            yield i, j, fold
+
+
+def w32_fold(w) -> None:
+    """Each column keeps its low 13 bits and passes the rest up, at once."""
+    carry = w[:, :-1] >> np.uint64(TF.RADIX_BITS)
+    w[:, :-1] &= np.uint64(TF.MASK)
+    w[:, 1:] += carry
+    assert (w < COLUMN_LIMIT).all()
+
+
+def model_fq12_mul(a, b, mask: int):
+    """One thread of kernel A per component: a, b are 12 carried digit
+    arrays [B, NL] (load_fp's carry). Returns the 12 output digit arrays and
+    the 12 integer sums the kernel reduces."""
+    out, sums = [], []
+    for k in range(12):
+        comp = k & 1
+        w = np.zeros((a[0].shape[0], 2 * NL), np.uint64)
+        total = [0] * a[0].shape[0]
+        for n, (i, j, fold) in enumerate(a_terms(k, mask)):
+            if n:
+                w32_fold(w)
+            x0, x1 = a[2 * i], a[2 * i + 1]
+            if fold:  # fp2_mul_xi_wide: (9 a0 + 2p - a1, a0 + 9 a1), carried
+                v0, v1 = value(x0), value(x1)
+                x0 = digits([9 * u + 2 * c.P - v for u, v in zip(v0, v1)])
+                x1 = digits([u + 9 * v for u, v in zip(v0, v1)])
+            y0 = b[2 * j + comp]
+            y1 = model_neg(b[2 * j + 1]) if comp == 0 else b[2 * j]
+            for x, y in ((x0, y0), (x1, y1)):
+                w32_mac(w, x, y)
+                total = [t + u * v for t, u, v in zip(total, value(x), value(y))]
+        out.append(w32_reduce(w))
+        sums.append(total)
+    return out, sums
+
+
+def exact_mont(t: int) -> int:
+    """(t + m p) / R with m = -t p^-1 mod R: what any exact Montgomery
+    reduction of the integer t gives."""
+    m = (-t * pow(c.P, -1, R_MONT)) % R_MONT
+    return (t + m * c.P) // R_MONT
+
+
+@pytest.mark.parametrize("mask", [0x3F, 0x19, 0x2C, 0x01])
+@pytest.mark.parametrize("kind", ["random", "two_p_minus_1", "settled"])
+def test_fq12_mul_folded_columns_match_field_library(kind, mask):
+    """Kernel A's 32-bit folded column sums for every component, dense, both
+    line shapes and a one-slot mask: columns below 2^32 at every step; the
+    digits those of the exact Montgomery reduction of the same integer sum
+    (so of field.cuh's fq12_mul, which reduces that sum in 64-bit columns)
+    and of F12.fq12_mul / fq12_mul_sparse after an exact carry."""
+    from pairing_tpu_torch.fields import fp12 as TF12
+
+    rng = np.random.default_rng({"random": 901, "two_p_minus_1": 902, "settled": 903}[kind] + mask)
+    n = 8
+    raw_a = [operand_limbs(rng, kind, n) for _ in range(12)]
+    raw_b = [operand_limbs(rng, kind, n) for _ in range(12)]
+    a = [digits(value(r)) for r in raw_a]
+    b = [digits(value(r)) for r in raw_b]
+    got, sums = model_fq12_mul(a, b, mask)
+    for k in range(12):
+        assert np.array_equal(got[k], digits([exact_mont(t) for t in sums[k]]))
+
+    def fq12(raw):
+        comps = [TF.Fp(torch.as_tensor(r, dtype=torch.int32), 2 * c.P, TF.SETTLED) for r in raw]
+        return TF12.Fq12(tuple(TF2.Fp2(comps[2 * i], comps[2 * i + 1]) for i in range(6)))
+
+    A, Bv = fq12(raw_a), fq12(raw_b)
+    present = [j for j in range(6) if mask >> j & 1]
+    want = (TF12.fq12_mul(A, Bv) if mask == 0x3F
+            else TF12.fq12_mul_sparse(A, {j: Bv.s[j] for j in present}))
+    for k in range(12):
+        comp = want.s[k >> 1].c1 if k & 1 else want.s[k >> 1].c0
+        assert np.array_equal(got[k], TF._ripple_carry(comp.limbs)[0].numpy().astype(np.uint64))
