@@ -51,13 +51,13 @@ Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
 redesigned kernels, A (both modes; one thread per output component and
-lane), C (all three modes) and D (six threads a lane), H and J (two) and K
-(one thread per line and lane), in the JSON line also carry their
-registers, stack, spill and shared bytes per block from this build's
-ptxas report (H's shared memory is dynamic, so its report shows none; its
-entry gives the bytes it asks for at launch); J's also carries its time at
-the K = 4 path's 65,536 lanes. Every kernel's line gives its share of its
-bound.
+lane), C (all three modes), D and K12 (six threads a lane), H (two), J
+(four) and K (one thread per line and lane), in the JSON line also carry
+their registers, stack, spill and shared bytes per block from this build's
+ptxas report (the shared memory of H and K12 is dynamic, so the report
+shows none; their entries give the bytes they ask for at launch); J's also
+carries its time at the K = 4 path's 65,536 lanes. Every kernel's line
+gives its share of its bound.
 Launch counts are set to 0 just before each of the paths of steps 3-7 and
 read just after; every kernel the path runs must have launched in it.
 
@@ -432,6 +432,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("exp_bits", lambda: FU.exp_bits_ladder(m, bits)[1],  # rows; out is rows[-1]
                    lambda: FU.exp_bits_ladder_plain(m, bits), results,
                    bound, B * (len(bits) * CYC_SQ + int(bits.sum()) * FQ12_DENSE), nbytes((m,)))
+    add_ptxas(results["exp_bits"], ptxas_log, "k_exp_bits", lib.pt_exp_bits_shared_bytes())
 
     n_states = 2 * ML.N_STEPS + 2
     xy, zi = rand(n_states, 4), rand(n_states, 2)

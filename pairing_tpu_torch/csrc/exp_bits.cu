@@ -11,43 +11,68 @@
 // Squares are Granger-Scott cyclotomic squares, equal to the dense square
 // only on the cyclotomic subgroup: the ladder runs on easy-part outputs. The
 // TPU walked the bits as a sequential grid axis with the row in VMEM
-// scratch; here one thread per lane runs the whole ladder with x, the row
-// and one temporary in local memory, and the bit is uniform across the warp,
-// so the multiply branch does not diverge.
+// scratch; here a loop over the bits runs inside one launch.
 //
 // Bound on the H100: integer multiply-adds. 64 cyclotomic squares and one
 // dense product per set bit need at least about 1.7 M 32-bit IMADs per lane
-// for BN_X (the least count in chip_smoke.py); this kernel issues about 6 M.
-// Against that, 1008 bytes are read and 64 x 1008 bytes written per lane.
+// for BN_X (the least count in chip_smoke.py), against 1008 bytes read and
+// 64 x 1008 bytes written per lane. Design: kernel D's (csrc/pow_ladder.cu)
+// on the six-thread group core (field_group.cuh): six threads per lane,
+// five lanes per warp, the lane's f, a scratch and x in shared memory, so
+// that each thread holds one Fq product's operands and accumulator in
+// registers and the SM keeps 8 warps in flight. x is loaded once and stays
+// resident: reloading it on each set bit, as D stages its stream row, ran
+// 7% slower on the H100. Each step is D's step with x as its row, then each
+// rank writes its own slot of the row. The bit is the same for every lane,
+// so the multiply branch is uniform.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "field_group.cuh"
 
 namespace pt {
 
-__global__ void __launch_bounds__(BLOCK)
+// Four warps a block, two blocks (8 warps) per SM, as kernel D. A lane's
+// shared region is f, the square's scratch and x (three Fq12 and one word
+// of padding, 3,028 B): 60,560 B a block, dynamic (over 48 KB).
+constexpr int K12_WARPS = 4;
+constexpr int K12_MIN_BLOCKS = 2;
+constexpr int K12_THREADS = K12_WARPS * 32;
+constexpr int K12_LANES = K12_WARPS * GROUP_LANES;  // lanes per block
+constexpr int K12_STRIDE = 3 * F12_WORDS + 1;
+constexpr size_t K12_SMEM = (size_t)K12_LANES * K12_STRIDE * sizeof(uint32_t);
+
+// The row store needs no barrier of its own: group_cyc_sq and
+// group_fq12_mul both end with rank s writing slot s of f and then a
+// __syncwarp, so the slot a rank stores is one it wrote itself, and the
+// next step's square only reads f until its own first barrier, which every
+// rank reaches after its store. x is written once, before the first
+// barrier, and only read after it.
+__global__ void __launch_bounds__(K12_THREADS, K12_MIN_BLOCKS)
 k_exp_bits(const int32_t* __restrict__ x_src, const int32_t* __restrict__ bits, int n_bits,
            int32_t* __restrict__ rows, int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
+  extern __shared__ uint32_t smem[];
+  const int warp = threadIdx.x >> 5, t32 = threadIdx.x & 31;
+  // Threads 30 and 31 of each warp belong to no lane and to no barrier's mask.
+  if (t32 >= GROUP * GROUP_LANES) return;
+  const int g = t32 / GROUP, s = t32 % GROUP;
+  const int lane = (blockIdx.x * K12_WARPS + warp) * GROUP_LANES + g;
+  // A lane past the batch edge works on the last lane's data, reaches every
+  // barrier with its group and stores nothing.
+  const bool live = lane < lanes;
   const size_t n = (size_t)lanes;
+  const size_t col = live ? (size_t)lane : n - 1;
+  uint32_t* f = smem + (warp * GROUP_LANES + g) * K12_STRIDE;
+  uint32_t* scr = f + F12_WORDS;
+  uint32_t* x = scr + F12_WORDS;
   const size_t row_words = 12 * NL * n;
-  Fq12 x, f0, f1;
-  Fq12* f = &f0;
-  Fq12* g = &f1;
-  load_fq12(x, x_src + lane, n);
-  fq12_set_one(*f);
+  group_set_one(f, s);
+  group_load_slot(x, x_src + col, n, s);
+  __syncwarp(GROUP_MASK);
 #pragma unroll 1
-  for (int s = 0; s < n_bits; ++s) {
-    fq12_cyc_sq(*f, *g);
-    if (__ldg(bits + s) != 0) {
-      fq12_mul(*g, x, DENSE, *f);
-    } else {
-      Fq12* tmp = f;
-      f = g;
-      g = tmp;
-    }
-    store_fq12(*f, rows + s * row_words + lane, n);
+  for (int t = 0; t < n_bits; ++t) {
+    group_cyc_sq(f, scr, s);
+    if (__ldg(bits + t) != 0) group_fq12_mul(f, x, s);
+    if (live) group_store_slot(f, rows + t * row_words + lane, n, s);
   }
 }
 
@@ -56,9 +81,16 @@ k_exp_bits(const int32_t* __restrict__ x_src, const int32_t* __restrict__ bits, 
 extern "C" int pt_exp_bits(const int32_t* x, const int32_t* bits, int n_bits, int32_t* rows,
                            int lanes, void* stream) {
   if (lanes > 0) {
-    const int blocks = (lanes + pt::BLOCK - 1) / pt::BLOCK;
-    pt::k_exp_bits<<<blocks, pt::BLOCK, 0, (cudaStream_t)stream>>>(x, bits, n_bits, rows,
-                                                                  lanes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        pt::k_exp_bits, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pt::K12_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = (lanes + pt::K12_LANES - 1) / pt::K12_LANES;
+    pt::k_exp_bits<<<blocks, pt::K12_THREADS, pt::K12_SMEM, (cudaStream_t)stream>>>(
+        x, bits, n_bits, rows, lanes);
   }
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a block of k_exp_bits asks for at launch
+// (ptxas reports static shared memory only).
+extern "C" int pt_exp_bits_shared_bytes() { return (int)pt::K12_SMEM; }

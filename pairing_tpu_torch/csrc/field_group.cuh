@@ -1,5 +1,5 @@
 // Fq12 routines split over a group of six threads per lane, for kernels C
-// (csrc/miller_f.cu) and D (csrc/pow_ladder.cu).
+// (csrc/miller_f.cu), D (csrc/pow_ladder.cu) and K12 (csrc/exp_bits.cu).
 //
 // field.cuh runs a whole Fq12 product in one thread: 252 words of operand
 // beside a 42-word 64-bit accumulator do not fit the 255-register file, so
@@ -42,9 +42,10 @@ constexpr int GROUP = 6;        // threads per lane
 constexpr int GROUP_LANES = 5;  // lanes per warp: 30 of its 32 threads
 constexpr unsigned GROUP_MASK = (1u << (GROUP * GROUP_LANES)) - 1;
 constexpr int F12_WORDS = 12 * NL;
-// Kernel D's shared region a lane: its Fq12 f, then a scratch of the same
-// size (the staged table row, or the square's partial results). One word of
-// padding keeps the 30 threads of a warp at most two to a bank.
+// The shared region of a lane in kernels D and K12: its Fq12 f, then a
+// scratch of the same size (the staged table row or x, or the square's
+// partial results). One word of padding keeps the 30 threads of a warp at
+// most two to a bank.
 constexpr int GROUP_STRIDE = 2 * F12_WORDS + 1;
 
 static __device__ __forceinline__ void sh_load(Fp& x, const uint32_t* p) {
@@ -68,6 +69,15 @@ static __device__ __forceinline__ void group_load_slot(uint32_t* dst,
     load_fp(x, src + c * NL * lanes, lanes);
     sh_store(x, dst + c * NL);
   }
+}
+
+// f <- 1 (fq12_set_one): rank s writes slot s, the Montgomery one in
+// component 0 and zeros elsewhere. The caller's barrier makes it visible.
+static __device__ __forceinline__ void group_set_one(uint32_t* f, int s) {
+#pragma unroll 1
+  for (int c = 2 * s; c < 2 * s + 2; ++c)
+#pragma unroll
+    for (int l = 0; l < NL; ++l) f[c * NL + l] = c == 0 ? KP[KP_ONE][l] : 0u;
 }
 
 static __device__ __forceinline__ void group_store_slot(const uint32_t* f,

@@ -141,4 +141,8 @@ def load() -> tuple:
         fn.restype = ctypes.c_int
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
+    for name in ("pt_trajectory_shared_bytes", "pt_exp_bits_shared_bytes"):
+        fn = getattr(lib, name)  # dynamic shared bytes a block asks for at launch
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     return lib, info

@@ -9,8 +9,8 @@ Counterparts of ``pairing_tpu/ops/fused_kernels.py``'s ``miller_f_pallas``
 ``pow_ladder_pallas`` (K16, plain NAF) and ``pow_ladder_w4_pallas`` (K17, w4
 NAF with the table built in the kernel). Each kernel loops over its steps
 inside one launch and keeps the Fq12 accumulator on the chip: in the thread,
-or for C and D in shared memory, split over six threads per lane; the plain
-versions below run the same schedule with the field library.
+or for C, D and K12 in shared memory, split over six threads per lane; the
+plain versions below run the same schedule with the field library.
 """
 
 from __future__ import annotations
@@ -236,6 +236,13 @@ def exp_bits_ladder_plain(x: torch.Tensor, bits) -> torch.Tensor:
     return torch.stack(rows)
 
 
+@lru_cache(maxsize=None)
+def bits_table(bits: tuple, device: torch.device) -> torch.Tensor:
+    """Kernel K12's bits, int32 [len(bits)] on ``device``: built once per
+    (bits, device), so a launch copies nothing from the host."""
+    return torch.as_tensor(np.asarray(bits, np.int32), device=device)
+
+
 def exp_bits_ladder(x: torch.Tensor, bits):
     """x^e for the MSB-first ``bits`` of e, shared by every lane, with every
     ladder row: row_s = row_{s-1}^2 * x^{b_s} from row_{-1} = 1. Squares are
@@ -251,7 +258,7 @@ def exp_bits_ladder(x: torch.Tensor, bits):
     lanes = x.shape[-1]
     dispatch.check_operand(x, "x", (12,), lanes)
     rows = torch.empty((len(bits),) + tuple(x.shape), dtype=torch.int32, device=x.device)
-    EXP_BITS(x, torch.as_tensor(bits, device=x.device), len(bits), rows, lanes)
+    EXP_BITS(x, bits_table(tuple(bits.tolist()), x.device), len(bits), rows, lanes)
     return rows[-1], rows
 
 

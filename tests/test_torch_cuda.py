@@ -77,8 +77,9 @@ def test_cyc_sq_kernel_matches_plain(gen, lanes):
     assert_same(KL.kcyc_sq(m), KL.kcyc_sq_plain(m))
 
 
-#: Kernels C and D run six threads per lane, five lanes per warp, 20 lanes
-#: per block: these lane counts cut a warp's group and a block at the edge.
+#: Kernels C, D and K12 run six threads per lane, five lanes per warp, 20
+#: lanes per block: these lane counts cut a warp's group and a block at the
+#: edge.
 GROUP_LANE_COUNTS = [1, 4, 5, 6, 31, 33, 1029, 2048]
 
 
@@ -260,14 +261,24 @@ def test_miller_f_modes_match_plain(gen, lanes, n_pairs, collect):
     assert_same(got, FU.miller_f_plain(tg, ch, ep, sched, n_pairs, collect))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
-def test_exp_bits_kernel_matches_plain(gen, lanes):
+#: Kernel K12's bit strings besides BN_X's (the witness path's): one set
+#: bit, and a string with a leading set bit and runs of ones and zeros.
+EXP_BITS_STRINGS = {"one": [1],
+                    "runs": [1, 1, 1, 0, 0, 0, 0, 1, 0, 1, 1, 0, 0, 1, 1, 1, 1, 0, 1, 0, 0, 0, 1]}
+
+
+@pytest.mark.parametrize("bits", ["bn_x", *EXP_BITS_STRINGS])
+@pytest.mark.parametrize("lanes", GROUP_LANE_COUNTS)
+def test_exp_bits_kernel_matches_plain(gen, lanes, bits):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing.final_exp import easy_part_k
 
+    bits = FU.BN_X_BITS_MSB if bits == "bn_x" else np.asarray(EXP_BITS_STRINGS[bits], np.int32)
     x = easy_part_k(rand_kf12((12,), lanes, gen))
-    out, rows = FU.exp_bits_ladder(x, FU.BN_X_BITS_MSB)
-    want = FU.exp_bits_ladder_plain(x, FU.BN_X_BITS_MSB)
+    before = FU.EXP_BITS.launches
+    out, rows = FU.exp_bits_ladder(x, bits)
+    assert FU.EXP_BITS.launches == before + 1
+    want = FU.exp_bits_ladder_plain(x, bits)
     assert_same((out, rows), (want[-1], want))
 
 

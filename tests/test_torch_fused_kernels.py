@@ -16,10 +16,12 @@
   (K17) over short digit vectors with negative digits, against the oracle;
   their digit checks; the ladder digits and the hard-chain program (K15)
   against the JAX package's constants.
-* The six-thread split of kernels C and D (``csrc/field_group.cuh``),
+* The six-thread split of kernels C, D and K12 (``csrc/field_group.cuh``),
   modelled below: each rank's products and reductions apart, assembled as
   the kernel does, against ``fq12_mul`` / ``fq12_sq`` / ``fq12_mul_sparse``
-  / ``fq12_cyclotomic_sq`` and the oracle.
+  / ``fq12_cyclotomic_sq`` and the oracle; K12's steps on that model, row
+  by row, limb for limb against its plain version. K12's device bits are
+  built once per (bits, device).
 Exact (canonical) comparison; every output in the kernel envelope.
 """
 
@@ -433,6 +435,41 @@ def test_six_rank_split_matches_field_library(op):
         got, want = fq12_mul_sparse_by_ranks(a, line), TF12.fq12_mul_sparse(a, line)
         oracle = [o.fq12_mul(x, y) for x, y in zip(xs, ys)]
     assert TF12.fq12_to_int_coeffs(got) == TF12.fq12_to_int_coeffs(want) == oracle
+
+
+def test_exp_bits_steps_by_ranks_match_plain():
+    """Kernel K12's step sequence on the six-rank model: from one, each bit
+    takes a split cyclotomic square and, on a set bit, a split dense product
+    by x, and the row is taken after every step. Held limb for limb to
+    ``exp_bits_ladder_plain`` on three easy-part outputs and a bit string
+    with leading zeros, and the last row to the oracle."""
+    rng = np.random.default_rng(309)
+    xs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+          for _ in range(3)]
+    x, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(xs, "cpu"))
+    bits = [0, 0, 1, 1, 0, 1, 1, 1, 0, 0, 1]
+    xv = FK.kf12_view(x)
+    f = TF12.fq12_cap(TF12.fq12_one((len(xs),), "cpu"))
+    rows = []
+    for b in bits:
+        f = cyc_sq_by_ranks(f)
+        if b:
+            f = fq12_mul_by_ranks(f, xv)
+        rows.append(FK.kf12_from(f))
+    got = torch.stack(rows)
+    assert torch.equal(got, FU.exp_bits_ladder_plain(x, bits))
+    e = int("".join(map(str, bits)), 2)
+    assert port_ints(got[-1]) == [o.pow_fq12(v, e) for v in xs]
+
+
+def test_exp_bits_table_built_once():
+    """The wrapper's device bits are built once per (bits, device)."""
+    cpu = torch.device("cpu")
+    bits = tuple(int(b) for b in FU.BN_X_BITS_MSB)
+    table = FU.bits_table(bits, cpu)
+    assert table.dtype == torch.int32 and table.tolist() == list(bits)
+    assert FU.bits_table(bits, cpu) is table
+    assert FU.bits_table((1, 0, 1), cpu) is not table
 
 
 def test_pow_ladder_stream_plain_other_digits_matches_oracle():
