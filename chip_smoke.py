@@ -51,12 +51,15 @@ Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
 shapes) against their plain versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
 redesigned kernels, A (both modes; one thread per output component and
-lane), C (all three modes), D and K12 (six threads a lane), H (two), J
-(four) and K (one thread per line and lane), in the JSON line also carry
-their registers, stack, spill and shared bytes per block from this build's
-ptxas report (the shared memory of H and K12 is dynamic, so the report
-shows none; their entries give the bytes they ask for at launch); J's also
-carries its time at the K = 4 path's 65,536 lanes. Every kernel's line
+lane), C (all three modes), D and K12 (six threads a lane), G (three
+launches: the tower to the norm and back one thread per output component,
+the Fermat chain one thread per lane), H (two), I (two), J (four) and K
+(one thread per line and lane), in the JSON line also carry their
+registers, stack, spill and shared bytes per block from this build's ptxas
+report (G's second and third kernels under ``ptxas_more``; the shared
+memory of G, H and K12 is dynamic, so the report shows none; their entries
+give the bytes they ask for at launch). The entries of I, J and F also
+carry their times at the K = 4 path's 65,536 lanes. Every kernel's line
 gives its share of its bound.
 Launch counts are set to 0 just before each of the paths of steps 3-7 and
 read just after; every kernel the path runs must have launched in it.
@@ -88,6 +91,7 @@ MULTI_WITNESS_PRODUCTS = 64
 SEED = 20261016
 DEVICE = "cuda"
 KERNEL_REPS = 10
+WIDE = K_PAIRS * BATCH  # lanes of phases B, N and C on the K = 4 path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 IMADS_PER_SM_CLOCK = 64  # assumed: CUDA C++ Programming Guide throughput table, cc 9.0
 SMS = 132
@@ -183,6 +187,15 @@ def pow_imads(e: int) -> int:
     """fp_pow_bits: a square per bit after the leading one, a product per set bit."""
     bits = bin(e)[3:]
     return len(bits) * FP_SQ + bits.count("1") * FP_MUL
+
+
+def pow_w4_imads(e: int) -> int:
+    """A fixed 4-bit window from e's top digit (kernel G's chain): a table of
+    x^1..x^15 (one square, 13 products), four squares a lower digit, a
+    product per nonzero one."""
+    digits = [(e >> (4 * k)) & 15 for k in range((e.bit_length() - 1) // 4, -1, -1)]
+    lower = digits[1:]
+    return (1 + 4 * len(lower)) * FP_SQ + (13 + sum(1 for d in lower if d)) * FP_MUL
 
 
 def check(ok: bool, msg: str) -> None:
@@ -283,36 +296,44 @@ def ptxas_entry(log: str, kernel: str) -> dict:
             "spill_load_bytes": loads, "shared_bytes_per_block": int(smem.group(1)) if smem else 0}
 
 
-def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0) -> None:
+def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0, *more) -> None:
     """The entry of a redesigned kernel gains its ptxas registers, stack,
     spills and shared bytes per block:
     the static bytes of the report plus ``dynamic_shared``, the bytes it
-    asks for at launch."""
-    entry.update(ptxas_entry(log, kernel))
-    entry["shared_bytes_per_block"] += dynamic_shared
-    print(f"{entry['name']}: {entry['registers']} registers, {entry['stack_bytes']} B stack, "
-          f"spill stores {entry['spill_store_bytes']} B, loads {entry['spill_load_bytes']} B, "
-          f"{entry['shared_bytes_per_block']} B shared per block (ptxas, {kernel})", flush=True)
+    asks for at launch. A kernel of several launches (G) names the others
+    in ``more`` as (kernel, dynamic_shared); each gets its own entry under
+    ``ptxas_more``."""
+    for i, (name, dyn) in enumerate(((kernel, dynamic_shared),) + more):
+        props = ptxas_entry(log, name)
+        props["shared_bytes_per_block"] += dyn
+        if i == 0:
+            entry.update(props)
+        else:
+            entry.setdefault("ptxas_more", {})[name] = props
+        print(f"{entry['name']}: {props['registers']} registers, {props['stack_bytes']} B stack, "
+              f"spill stores {props['spill_store_bytes']} B, loads {props['spill_load_bytes']} B, "
+              f"{props['shared_bytes_per_block']} B shared per block (ptxas, {name})", flush=True)
 
 
-def running_inverse_wide(entry: dict, rand, bound, n_steps: int) -> None:
-    """Kernel J at the K = 4 path's 65,536 lanes: equal to its plain version,
-    timed, into its entry."""
-    from pairing_tpu_torch.ops import norm_kernels as NK
-    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical
+def wide_case(entry: dict, bound, run, plain, imads: float, inputs) -> None:
+    """A kernel at the K = 4 path's 65,536 lanes (kernels I, J and F run
+    there on ``multi_pairing``): equal to its plain version on canonical
+    values, in the envelope, timed, into its entry."""
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical, kf12_in_envelope
 
-    lanes = K_PAIRS * BATCH
-    z, prefix = rand(n_steps, 2, lanes=lanes), rand(n_steps, 2, lanes=lanes)
-    tinv = rand(2, lanes=lanes)
-    got = NK.running_inverse(z, prefix, tinv)
-    want = NK.running_inverse_plain(z, prefix, tinv)
-    check(torch.equal(kf12_canonical(got), kf12_canonical(want)),
-          f"running_inverse differs from its plain version at {lanes} lanes")
+    name = entry["name"]
+    got, want = run(), plain()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    lanes = got[0].shape[-1]
+    for g, w in zip(got, want, strict=True):
+        check(kf12_in_envelope(g) and torch.equal(kf12_canonical(g), kf12_canonical(w)),
+              f"{name} differs from its plain version at {lanes} lanes")
     del want
-    ms = timed_ms(lambda: NK.running_inverse(z, prefix, tinv), KERNEL_REPS)
-    bound_ms, _ = bound(lanes * 2 * n_steps * FP2_MUL, nbytes((z, prefix, tinv, got)))
+    ms = timed_ms(run, KERNEL_REPS)
+    bound_ms, _ = bound(imads, nbytes(inputs) + nbytes(got))
     entry["ms_65536_lanes"], entry["bound_ms_65536_lanes"] = ms, bound_ms
-    print(f"running_inverse at {lanes} lanes: equal to plain; kernel {ms:.4f} ms, bound "
+    print(f"{name} at {lanes} lanes: equal to plain; kernel {ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms, {100 * bound_ms / ms:.1f}% of it", flush=True)
 
 
@@ -382,13 +403,20 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("fp_pow_bits", lambda: FPK.fp_pow_bits(x, P - 2),
                    lambda: FPK.fp_pow_bits_plain(x, P - 2), results, bound,
                    B * pow_imads(P - 2), nbytes((x,)))
+    x = rand(lanes=WIDE)
+    wide_case(results["fp_pow_bits"], bound, lambda: FPK.fp_pow_bits(x, P - 2),
+              lambda: FPK.fp_pow_bits_plain(x, P - 2), WIDE * pow_imads(P - 2), (x,))
 
     # two Fq6 squares, the Fq6 inverse, two Fq6 products; the Fq2 norm's two
-    # squares share one reduction, then the Fq inverse and two Fq products
-    inv_imads = (25 * FP2_MUL + 9 * FP2_SQ + 2 * SQ_PRODUCTS + MONT + pow_imads(P - 2)
+    # squares share one reduction, then the Fq inverse (over 4-bit windows)
+    # and two Fq products
+    inv_imads = (25 * FP2_MUL + 9 * FP2_SQ + 2 * SQ_PRODUCTS + MONT + pow_w4_imads(P - 2)
                  + 2 * FP_MUL)
     compare_kernel("fq12_inv", lambda: KL.kinv(a), lambda: KL.kinv_plain(a), results, bound,
                    B * inv_imads, nbytes((a,)))
+    lib, _ = build.load()
+    add_ptxas(results["fq12_inv"], ptxas_log, "k_fq12_inv_norm", lib.pt_fq12_inv_shared_bytes(),
+              ("k_fq12_inv_chain", 0), ("k_fq12_inv_out", lib.pt_fq12_inv_shared_bytes()))
 
     q = rand(4)
     n_adds = sum(1 for d in ML.STEP_DIGITS if d)
@@ -396,19 +424,27 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("trajectory", lambda: CK.trajectory(q, ML.STEP_DIGITS),
                    lambda: CK.trajectory_plain(q, ML.STEP_DIGITS), results, bound,
                    B * traj_imads, nbytes((q,)))
-    lib, _ = build.load()
     add_ptxas(results["trajectory"], ptxas_log, "k_trajectory", lib.pt_trajectory_shared_bytes())
 
     z, tinv = rand(2 * ML.N_STEPS + 2, 2), rand(2)
     prefix, _ = NK.prefix_products(z)
+    n_z = z.shape[0]
     compare_kernel("prefix_products", lambda: NK.prefix_products(z),
                    lambda: NK.prefix_products_plain(z), results, bound,
-                   B * z.shape[0] * FP2_MUL, nbytes((z,)))
+                   B * n_z * FP2_MUL, nbytes((z,)))
+    add_ptxas(results["prefix_products"], ptxas_log, "k_prefix_products")
     compare_kernel("running_inverse", lambda: NK.running_inverse(z, prefix, tinv),
                    lambda: NK.running_inverse_plain(z, prefix, tinv), results, bound,
-                   B * 2 * z.shape[0] * FP2_MUL, nbytes((z, prefix, tinv)))
+                   B * 2 * n_z * FP2_MUL, nbytes((z, prefix, tinv)))
     add_ptxas(results["running_inverse"], ptxas_log, "k_running_inverse")
-    running_inverse_wide(results["running_inverse"], rand, bound, z.shape[0])
+    zw = rand(n_z, 2, lanes=WIDE)
+    wide_case(results["prefix_products"], bound, lambda: NK.prefix_products(zw),
+              lambda: NK.prefix_products_plain(zw), WIDE * n_z * FP2_MUL, (zw,))
+    pw, tw = rand(n_z, 2, lanes=WIDE), rand(2, lanes=WIDE)
+    wide_case(results["running_inverse"], bound, lambda: NK.running_inverse(zw, pw, tw),
+              lambda: NK.running_inverse_plain(zw, pw, tw), WIDE * 2 * n_z * FP2_MUL,
+              (zw, pw, tw))
+    del zw, pw, tw
 
     tops, dbls, zinv, pq = rand(ML.N_STEPS, 6), rand(ML.N_STEPS, 6), z, rand(6)
     ch_rows = ML.CHORD_ROWS[:ML.N_STEPS]

@@ -1,4 +1,4 @@
-// 32-bit column sums for the port's Fq2-level kernels (H, K).
+// 32-bit column sums for the port's Fq2-level kernels (H, K, A, I, J, G).
 //
 // field.cuh sums every limb product into 64-bit position accumulators
 // (IMAD.WIDE), which an Fq12 product needs. An Fq2 product component needs
@@ -77,6 +77,108 @@ static __device__ __forceinline__ Fp small(const Fp& a) {
   if (K > 4) fp_cond_sub(r, KP_8);
   if (K > 2) fp_cond_sub(r, KP_4);
   fp_cond_sub(r, KP_2);
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// One Fq square, product and Fermat inverse a thread (kernel G's chain).
+// ---------------------------------------------------------------------------
+
+// Digit j of p as a compile-time constant: in an unrolled loop the
+// reduction's multiply-adds take it as an immediate, and the top digit, 0,
+// drops out.
+static __device__ __forceinline__ uint32_t p_digit(int j) {
+  constexpr uint32_t d[NL] = {7495, 999, 1462, 280, 5058, 1350, 455, 4653, 362, 3260, 5655,
+                              770, 7016, 2082, 1761, 5125, 305, 5015, 6419, 96, 0};
+  return d[j];
+}
+
+// w32_reduce with p's digits as immediates: the same sums, the same digits.
+static __device__ __forceinline__ void w32_reduce_imm(Wide32& w, Fp& r) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t m = (w.t[i] * NP0) & MASK;
+#pragma unroll
+    for (int j = 0; j < NL - 1; ++j) w.t[i + j] += m * p_digit(j);
+    w.t[i + 1] += w.t[i] >> RB;
+  }
+  uint32_t c = 0;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    const uint32_t s = w.t[NL + k] + c;
+    r.v[k] = s & MASK;
+    c = s >> RB;
+  }
+}
+
+// w = a^2 (w is overwritten), a's digits below 2^13: each cross product
+// a_i a_j (i < j) once, against the doubled digit 2 a_i, and the squares
+// a_i^2; 231 limb products where w32_mac takes 441, the same columns. A
+// column takes at most 10 doubled cross products and one square, below
+// 1.41e9; the reduction's terms m_i p_j (at most 8,191 x 59,618 a column)
+// and one carry below 2^19 keep it below 1.9e9 < 2^32 (the numpy model in
+// tests/test_torch_inv_kernels.py checks both at all-maximal digits).
+static __device__ __forceinline__ void w32_sq(Wide32& w, const Fp& a) {
+#pragma unroll
+  for (int i = 0; i < 2 * NL; ++i) w.t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    const uint32_t d = a.v[i] << 1;
+#pragma unroll
+    for (int j = i + 1; j < NL; ++j) w.t[i + j] += d * a.v[j];
+    w.t[2 * i] += a.v[i] * a.v[i];
+  }
+}
+
+// a * b * R^-1 and a^2 * R^-1 for digits below 2^13 and values below 2p:
+// field.cuh's fp_mul on the same integers, so the same digits.
+static __device__ __forceinline__ Fp fp32_mul(const Fp& a, const Fp& b) {
+  Wide32 w;
+  w32_zero(w);
+  w32_mac(w, a, b);
+  Fp r;
+  w32_reduce_imm(w, r);
+  return r;
+}
+
+static __device__ __forceinline__ Fp fp32_sq(const Fp& a) {
+  Wide32 w;
+  w32_sq(w, a);
+  Fp r;
+  w32_reduce_imm(w, r);
+  return r;
+}
+
+// p - 2 in 32-bit words, least significant first; its leading one is bit
+// 253. ops/fp_kernels.py:inverse_schedule gives the same words (a tier-1
+// test reads them from this file).
+static __constant__ uint32_t PM2_WORDS[8] = {0xd87cfd45u, 0x3c208c16u, 0x6871ca8du,
+                                             0x97816a91u, 0x8181585du, 0xb85045b6u,
+                                             0xe131a029u, 0x30644e72u};
+constexpr int PM2_TOP = 253;
+
+// x^(p-2) in the Montgomery domain (1/x, and 0 for x = 0) over a fixed
+// window of 4 bits: x^d for d = 1..15 in a table (one square, 13
+// products), p - 2's top digit, 3, then for each of the 63 digits below it
+// four squares and, for the 59 nonzero ones, a product by x^d: 253 squares
+// and 72 products, where a bit at a time (field.cuh's fp_pow_bits) takes
+// 253 and 109. The digits come from the constant bank, one word a 32
+// steps.
+static __device__ __forceinline__ Fp fp32_inv(const Fp& x) {
+  Fp tab[16];  // tab[d] = x^d; the digit indexes it at run time: local memory
+  tab[1] = x;
+  tab[2] = fp32_sq(x);
+#pragma unroll 1
+  for (int d = 3; d < 16; ++d) tab[d] = fp32_mul(tab[d - 1], x);
+  Fp r = tab[3];
+#pragma unroll 1
+  for (int i = PM2_TOP - 2; i >= 0; --i) {
+    r = fp32_sq(r);
+    if ((i & 3) == 0) {
+      const uint32_t d = (PM2_WORDS[i >> 5] >> (i & 31)) & 15u;
+      if (d) r = fp32_mul(r, tab[d]);
+    }
+  }
   return r;
 }
 

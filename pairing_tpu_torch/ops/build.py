@@ -45,7 +45,7 @@ ENTRY_POINTS = {
     "pt_pow_ladder_stream": (_P, _P, _I, _P, _I, _P),
     "pt_fq12_slotwise": (_P, _P, _P, _P, _I, _P),
     "pt_fp_pow_bits": (_P, _P, _I, _P, _I, _P),
-    "pt_fq12_inv": (_P, _P, _I, _P, _I, _P),
+    "pt_fq12_inv": (_P, _P, _P, _I, _P),
     "pt_trajectory": (_P, _P, _I, _P, _P, _P, _I, _P),
     "pt_prefix_products": (_P, _I, _P, _P, _I, _P),
     "pt_running_inverse": (_P, _P, _P, _I, _P, _I, _P),
@@ -141,7 +141,8 @@ def load() -> tuple:
         fn.restype = ctypes.c_int
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
-    for name in ("pt_trajectory_shared_bytes", "pt_exp_bits_shared_bytes"):
+    for name in ("pt_trajectory_shared_bytes", "pt_exp_bits_shared_bytes",
+                 "pt_fq12_inv_shared_bytes"):
         fn = getattr(lib, name)  # dynamic shared bytes a block asks for at launch
         fn.argtypes = []
         fn.restype = ctypes.c_int

@@ -5,6 +5,10 @@ The counterpart of ``pairing_tpu/ops/fp_kernels.py``'s
 ``fields.fp.fp_inv`` (the one Fq2 inversion between the two Phase N
 passes). The exponent enters as its MSB-first bits after the leading one,
 in a small device array that every thread reads.
+
+Kernel G's chain (``csrc/field32.cuh``, ``fp32_inv``) runs the inverse's
+fixed schedule instead, compiled in: ``inverse_schedule`` gives the same
+words.
 """
 
 from __future__ import annotations
@@ -29,6 +33,16 @@ def exponent_bits(e: int, device: torch.device) -> torch.Tensor:
         raise ValueError("exponent must be >= 1")
     bits = np.asarray([int(b) for b in bin(e)[3:]], np.int32)
     return torch.as_tensor(bits, device=device)
+
+
+@lru_cache(maxsize=None)
+def inverse_schedule() -> tuple:
+    """The Fermat inverse's exponent p - 2 as kernel G's chain reads it:
+    (eight 32-bit words, least significant first; the bit of its leading
+    one). Bit i of the exponent is bit i % 32 of word i // 32; its 4-bit
+    window digit at i (a multiple of 4) is (word >> i % 32) & 15."""
+    e = F.P - 2
+    return tuple((e >> (32 * k)) & 0xFFFFFFFF for k in range(8)), e.bit_length() - 1
 
 
 def fp_pow_bits_plain(a: torch.Tensor, e: int) -> torch.Tensor:

@@ -27,7 +27,6 @@ from ..fields import fp as F
 from ..fields import fp12 as F12
 from ..utils.bn254 import P, frob_coeff_pow
 from . import dispatch
-from .fp_kernels import exponent_bits
 from .fq12_kernels import fq12_mul as kmul  # noqa: F401  (re-export)
 from .fq12_kernels import fq12_mul_sparse as kmul_sparse  # noqa: F401  (re-export)
 from .fq12_kernels import fq12_sq as ksq  # noqa: F401  (re-export)
@@ -128,13 +127,18 @@ def kinv_plain(a: torch.Tensor) -> torch.Tensor:
     return kf12_from(F12.fq12_inv(kf12_view(a)))
 
 
+#: Rows [rows, NLIMBS, B] of kernel G's device scratch: t (6), n (2), N, 1/N.
+INV_SCRATCH_ROWS = 10
+
+
 def kinv(a: torch.Tensor) -> torch.Tensor:
-    """Tower inversion (fields.fp12.fq12_inv): one Fermat inverse per lane."""
+    """Tower inversion (fields.fp12.fq12_inv): one Fermat inverse per lane.
+    Kernel G's three launches (norm, chain, output) count as one."""
     if not dispatch.on_cuda(a):
         return kinv_plain(a)
     lanes = a.shape[-1]
     dispatch.check_operand(a, "a", (12,), lanes)
-    bits = exponent_bits(P - 2, a.device)
+    scratch = torch.empty((INV_SCRATCH_ROWS, F.NLIMBS, lanes), dtype=a.dtype, device=a.device)
     out = torch.empty_like(a)
-    FQ12_INV(a, bits, bits.numel(), out, lanes)
+    FQ12_INV(a, scratch, out, lanes)
     return out

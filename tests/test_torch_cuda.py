@@ -146,6 +146,57 @@ def test_fq12_inv_kernel_matches_plain(gen, lanes):
     assert_same(KL.kinv(a), KL.kinv_plain(a))
 
 
+#: Kernel G's tower runs 32 lanes a block (one warp per output component),
+#: its chain 128 lanes a block: lane counts that cut both at the edge.
+FQ12_INV_LANE_COUNTS = [1, 31, 32, 33, 129, 2048, 16391]
+
+
+def fq12_inv_edge_operand(lanes, gen):
+    """Random operands, where the lanes exist: lane 0 zero, lane 1 one, lane
+    2 limbs of 2^13 and 2^13 + 1 in every even limb below 19, lane 3 values
+    just below 2p."""
+    from pairing_tpu_torch.fields import fp as F
+
+    a = rand_kf12((12,), lanes, gen)
+    rows = []
+    if lanes > 0:
+        rows.append(np.zeros((12, 21), np.int64))
+    if lanes > 1:
+        one = np.zeros((12, 21), np.int64)
+        one[0] = F.int_to_limbs(F.R_MONT % F.P)
+        rows.append(one)
+    if lanes > 2:
+        rng = np.random.default_rng(lanes)
+        settled = rng.integers(0, 4000, (12, 21))
+        settled[:, 0:19:2] = 8192 + rng.integers(0, 2, (12, 10))
+        settled[:, 19], settled[:, 20] = rng.integers(0, 100, 12), 0  # the value stays below 2p
+        rows.append(settled)
+    if lanes > 3:
+        rows.append(np.stack([F.int_to_limbs(2 * F.P - 1 - k) for k in range(12)]))
+    for lane, row in enumerate(rows):
+        a[:, :, lane] = torch.as_tensor(row, dtype=torch.int32, device=a.device)
+    return a
+
+
+@pytest.mark.parametrize("lanes", FQ12_INV_LANE_COUNTS)
+def test_fq12_inv_kernel_edge_lanes(gen, lanes):
+    """Kernel G (three launches, one count) equal to kinv_plain on canonical
+    values, in the envelope; a zero lane gives zero and a one lane one."""
+    from pairing_tpu_torch.ops import klayout as KL
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical, kf12_in_envelope
+
+    a = fq12_inv_edge_operand(lanes, gen)
+    assert kf12_in_envelope(a)
+    before = KL.FQ12_INV.launches
+    got = KL.kinv(a)
+    assert KL.FQ12_INV.launches == before + 1
+    assert_same(got, KL.kinv_plain(a))
+    canon = kf12_canonical(got)
+    assert bool((canon[..., 0] == 0).all())
+    if lanes > 1:
+        assert torch.equal(canon[..., 1:2], kf12_canonical(a[..., 1:2]))
+
+
 #: Lane counts that cut kernel H's 16-lane warps and 64-lane blocks.
 TRAJECTORY_LANE_COUNTS = [1, 15, 16, 17, 33, 63, 65, 1024, 1029, 2048]
 #: A digit string with runs of +-1 and of 0, beside the Miller loop's own.
@@ -172,6 +223,69 @@ def test_batch_inversion_kernels_match_plain(gen, lanes):
     assert_same((prefix, total), NK.prefix_products_plain(z))
     tinv = rand_kf12((2,), lanes, gen)
     assert_same(NK.running_inverse(z, prefix, tinv), NK.running_inverse_plain(z, prefix, tinv))
+
+
+def exact_fp2_step(c, z):
+    """fp2_mul(c, z) on digits as kernels I and J compute it: z carried
+    (load_fp), 2p - z1 reduced (fp_neg), each component's two products
+    summed and reduced word by word, exactly (int64 columns). c, z:
+    [..., 2, 21, lanes] int32 with c's digits below 2^13 -> c z, the same."""
+    from pairing_tpu_torch.fields import fp as F
+
+    dev = z.device
+
+    def carried(t):
+        return F._ripple_carry(t.transpose(-1, -2))[0].transpose(-1, -2).long()
+
+    p_digits = torch.as_tensor(F.int_to_limbs(F.P), device=dev).long().view(-1, 1)
+    c0, c1 = c[..., 0, :, :].long(), c[..., 1, :, :].long()
+    z0, z1 = carried(z[..., 0, :, :]), carried(z[..., 1, :, :])
+    nz1 = carried(2 * p_digits - z1)  # 2p - z1, and 0 where z1 is 0 (not 2p)
+    nz1 = torch.where((z1 == 0).all(dim=-2, keepdim=True), torch.zeros_like(nz1), nz1)
+
+    def mont(pairs):
+        t = torch.zeros(c0.shape[:-2] + (2 * F.NLIMBS, c0.shape[-1]), dtype=torch.long,
+                        device=dev)
+        for a, b in pairs:
+            for i in range(F.NLIMBS):
+                t[..., i:i + F.NLIMBS, :] += a[..., i:i + 1, :] * b
+        for i in range(F.NLIMBS):
+            m = (t[..., i, :] * 905) & F.MASK  # 905 = -1/p mod 2^13
+            t[..., i:i + F.NLIMBS, :] += m.unsqueeze(-2) * p_digits
+            t[..., i + 1, :] += t[..., i, :] >> F.RADIX_BITS
+        return carried(t[..., F.NLIMBS:, :])
+
+    return torch.stack([mont([(c0, z0), (c1, nz1)]), mont([(c0, z1), (c1, z0)])], dim=-3).int()
+
+
+#: Kernel I runs two threads a lane, 16 lanes a warp, 64 a block: lane
+#: counts that cut a warp and a block, the main path's 16384 and the K = 4
+#: path's 65,536 (plus 3).
+PREFIX_PRODUCTS_LANE_COUNTS = [1, 15, 16, 17, 33, 63, 65, 16384, 65539]
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 130])
+@pytest.mark.parametrize("lanes", PREFIX_PRODUCTS_LANE_COUNTS)
+def test_prefix_products_kernel_matches_plain(gen, lanes, n_steps):
+    """Kernel I equal to its plain version on canonical values, and limb for
+    limb at every step: prefix[0] is one's digits and each next row (total
+    last) the exact reduction of the same products of the row before,
+    which is what the one-thread kernel it replaced computed."""
+    from pairing_tpu_torch.fields import fp as F
+    from pairing_tpu_torch.ops import norm_kernels as NK
+
+    z = rand_kf12((n_steps, 2), lanes, gen)
+    before = NK.PREFIX_PRODUCTS.launches
+    got = NK.prefix_products(z)
+    assert NK.PREFIX_PRODUCTS.launches == before + 1
+    assert tuple(got[0].shape) == tuple(z.shape) and tuple(got[1].shape) == tuple(z[0].shape)
+    assert_same(got, NK.prefix_products_plain(z))
+    rows = torch.cat([got[0], got[1][None]])
+    one = torch.as_tensor(F.int_to_limbs(F.R_MONT % F.P), dtype=torch.int32, device=z.device)
+    assert bool((rows[0, 0] == one.view(-1, 1)).all()) and bool((rows[0, 1] == 0).all())
+    for i in range(0, n_steps, 16):  # 16 steps at a time: the int64 columns of 65,539 lanes
+        j = min(i + 16, n_steps)
+        assert torch.equal(rows[i + 1:j + 1], exact_fp2_step(rows[i:j], z[i:j]))
 
 
 #: Kernel J runs four threads a lane, 8 lanes a warp, 32 a block: lane
