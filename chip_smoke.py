@@ -47,14 +47,16 @@ toolkit (nvcc). It
   8. prints one JSON line of per-kernel results, the card's name and power
      limit, and last ``{"ok": true, "device": {...}}``.
 
-Step 2 also holds K15, K16, K17, K18 and kernel A's sparse mode (both line
-shapes) against their plain versions, and runs K16, K17 and D on the same m:
+Step 2 also holds B on random inputs beside cyclotomic ones, K15, K16,
+K17, K18 and kernel A's sparse mode (both line shapes) against their plain
+versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
-redesigned kernels, A (both modes; one thread per output component and
-lane), C (all three modes), D and K12 (six threads a lane), G (three
-launches: the tower to the norm and back one thread per output component,
-the Fermat chain one thread per lane), H (two), I (two), J (four) and K
-(one thread per line and lane), in the JSON line also carry their
+redesigned kernels, A and B (A in both modes; one thread per output
+component and lane), C (all three modes), D and K12 (six threads a lane),
+F (one thread a lane, G's window chain), G (three launches: the tower to
+the norm and back one thread per output component, the Fermat chain one
+thread per lane), H (two), I (two), J (four) and K (one thread per line
+and lane), in the JSON line also carry their
 registers, stack, spill and shared bytes per block from this build's ptxas
 report (G's second and third kernels under ``ptxas_more``; the shared
 memory of G, H and K12 is dynamic, so the report shows none; their entries
@@ -93,7 +95,9 @@ DEVICE = "cuda"
 KERNEL_REPS = 10
 WIDE = K_PAIRS * BATCH  # lanes of phases B, N and C on the K = 4 path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-IMADS_PER_SM_CLOCK = 64  # assumed: CUDA C++ Programming Guide throughput table, cc 9.0
+# CUDA C++ Programming Guide throughput table, cc 9.0; tools/fb_variants.py's
+# IMAD loop measured 63.67-64.02 on an H100 80GB HBM3 at 700 W
+IMADS_PER_SM_CLOCK = 64
 SMS = 132
 
 KERNEL_SOURCES = {
@@ -184,18 +188,28 @@ def ladder_imads(digits, start_squares: bool) -> int:
 
 
 def pow_imads(e: int) -> int:
-    """fp_pow_bits: a square per bit after the leading one, a product per set bit."""
-    bits = bin(e)[3:]
-    return len(bits) * FP_SQ + bits.count("1") * FP_MUL
-
-
-def pow_w4_imads(e: int) -> int:
-    """A fixed 4-bit window from e's top digit (kernel G's chain): a table of
-    x^1..x^15 (one square, 13 products), four squares a lower digit, a
-    product per nonzero one."""
-    digits = [(e >> (4 * k)) & 15 for k in range((e.bit_length() - 1) // 4, -1, -1)]
-    lower = digits[1:]
-    return (1 + 4 * len(lower)) * FP_SQ + (13 + sum(1 for d in lower if d)) * FP_MUL
+    """x^e by the least of the sliding-window chains with windows of 1 to 8
+    bits (kernel F and G's chain run a fixed 4-bit window, which takes more
+    products): a table of the odd powers x, x^3, ..., x^(2^k - 1) (one
+    square, 2^(k-1) - 1 products), r the top window's entry, then a square a
+    bit and a product a window below it."""
+    bits = bin(e)[2:]
+    counts = []
+    for k in range(1, 9):
+        squares, products = (1, (1 << (k - 1)) - 1) if k > 1 else (0, 0)
+        i, first = 0, True
+        while i < len(bits):
+            if bits[i] == "0":
+                squares, i = squares + 1, i + 1
+                continue
+            j = min(i + k, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            if not first:
+                squares, products = squares + j - i, products + 1
+            first, i = False, j
+        counts.append(squares * FP_SQ + products * FP_MUL)
+    return min(counts)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -235,8 +249,9 @@ class Bounds:
         mhz = float(query_gpu("clocks.max.sm").split()[0])
         self.imads_per_s = SMS * IMADS_PER_SM_CLOCK * mhz * 1e6
         print(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s; {self.imads_per_s / 1e12:.2f} T "
-              f"32-bit IMAD/s ({SMS} SMs x {IMADS_PER_SM_CLOCK}/clock x {mhz:.0f} MHz, the "
-              f"rate assumed from the CUDA C++ Programming Guide, cc 9.0)", flush=True)
+              f"32-bit IMAD/s ({SMS} SMs x {IMADS_PER_SM_CLOCK}/clock x {mhz:.0f} MHz: the "
+              f"CUDA C++ Programming Guide's rate for cc 9.0, as tools/fb_variants.py "
+              f"measures it)", flush=True)
 
     def __call__(self, imads: float, n_bytes: float):
         t_ops, t_mem = imads / self.imads_per_s, n_bytes / HBM_BYTES_PER_S
@@ -365,8 +380,11 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     add_ptxas(results["fq12_mul"], ptxas_log, "k_fq12_mul")
 
     m = FE.easy_part_k(a)  # cyclotomic-subgroup inputs for B, D and K12
-    compare_kernel("fq12_cyc_sq", lambda: KL.kcyc_sq(m), lambda: KL.kcyc_sq_plain(m),
-                   results, bound, B * CYC_SQ, nbytes((m,)))
+    # B on m and on the random a: the same polynomial on any input
+    compare_kernel("fq12_cyc_sq", lambda: (KL.kcyc_sq(m), KL.kcyc_sq(a)),
+                   lambda: (KL.kcyc_sq_plain(m), KL.kcyc_sq_plain(a)), results, bound,
+                   2 * B * CYC_SQ, nbytes((m, a)), calls=2)
+    add_ptxas(results["fq12_cyc_sq"], ptxas_log, "k_fq12_cyc_sq")
 
     sched = FU.miller_schedule(ML.MILLER_FLAGS, ML.CHORD_ROWS)
     n_loop, n_lines = ML.N_STEPS, ML.N_STEPS + ML.N_ADDS + 2
@@ -403,14 +421,15 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("fp_pow_bits", lambda: FPK.fp_pow_bits(x, P - 2),
                    lambda: FPK.fp_pow_bits_plain(x, P - 2), results, bound,
                    B * pow_imads(P - 2), nbytes((x,)))
+    add_ptxas(results["fp_pow_bits"], ptxas_log, "k_fp_pow_bits")
     x = rand(lanes=WIDE)
     wide_case(results["fp_pow_bits"], bound, lambda: FPK.fp_pow_bits(x, P - 2),
               lambda: FPK.fp_pow_bits_plain(x, P - 2), WIDE * pow_imads(P - 2), (x,))
 
     # two Fq6 squares, the Fq6 inverse, two Fq6 products; the Fq2 norm's two
-    # squares share one reduction, then the Fq inverse (over 4-bit windows)
+    # squares share one reduction, then the Fq inverse (a sliding window)
     # and two Fq products
-    inv_imads = (25 * FP2_MUL + 9 * FP2_SQ + 2 * SQ_PRODUCTS + MONT + pow_w4_imads(P - 2)
+    inv_imads = (25 * FP2_MUL + 9 * FP2_SQ + 2 * SQ_PRODUCTS + MONT + pow_imads(P - 2)
                  + 2 * FP_MUL)
     compare_kernel("fq12_inv", lambda: KL.kinv(a), lambda: KL.kinv_plain(a), results, bound,
                    B * inv_imads, nbytes((a,)))

@@ -1,4 +1,5 @@
-// 32-bit column sums for the port's Fq2-level kernels (H, K, A, I, J, G).
+// 32-bit column sums for the port's Fq2-level kernels (H, K, A, I, J, G, B)
+// and the Fq power chain (G, F).
 //
 // field.cuh sums every limb product into 64-bit position accumulators
 // (IMAD.WIDE), which an Fq12 product needs. An Fq2 product component needs
@@ -111,16 +112,12 @@ static __device__ __forceinline__ void w32_reduce_imm(Wide32& w, Fp& r) {
   }
 }
 
-// w = a^2 (w is overwritten), a's digits below 2^13: each cross product
-// a_i a_j (i < j) once, against the doubled digit 2 a_i, and the squares
-// a_i^2; 231 limb products where w32_mac takes 441, the same columns. A
-// column takes at most 10 doubled cross products and one square, below
-// 1.41e9; the reduction's terms m_i p_j (at most 8,191 x 59,618 a column)
-// and one carry below 2^19 keep it below 1.9e9 < 2^32 (the numpy model in
-// tests/test_torch_inv_kernels.py checks both at all-maximal digits).
-static __device__ __forceinline__ void w32_sq(Wide32& w, const Fp& a) {
-#pragma unroll
-  for (int i = 0; i < 2 * NL; ++i) w.t[i] = 0;
+// w += a^2, a's digits below 2^13: each cross product a_i a_j (i < j) once,
+// against the doubled digit 2 a_i, and the squares a_i^2; 231 limb products
+// where w32_mac takes 441, the same columns. A column takes at most 10
+// doubled cross products and one square, below 1.41e9, as w32_mac's
+// product does.
+static __device__ __forceinline__ void w32_sq_mac(Wide32& w, const Fp& a) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const uint32_t d = a.v[i] << 1;
@@ -128,6 +125,15 @@ static __device__ __forceinline__ void w32_sq(Wide32& w, const Fp& a) {
     for (int j = i + 1; j < NL; ++j) w.t[i + j] += d * a.v[j];
     w.t[2 * i] += a.v[i] * a.v[i];
   }
+}
+
+// w = a^2 (w is overwritten). The reduction's terms m_i p_j (at most 8,191 x
+// 59,618 a column) and one carry below 2^19 keep a column below 1.9e9 <
+// 2^32 (the numpy model in tests/test_torch_inv_kernels.py checks both at
+// all-maximal digits).
+static __device__ __forceinline__ void w32_sq(Wide32& w, const Fp& a) {
+  w32_zero(w);
+  w32_sq_mac(w, a);
 }
 
 // a * b * R^-1 and a^2 * R^-1 for digits below 2^13 and values below 2p:
@@ -157,29 +163,44 @@ static __constant__ uint32_t PM2_WORDS[8] = {0xd87cfd45u, 0x3c208c16u, 0x6871ca8
                                              0xe131a029u, 0x30644e72u};
 constexpr int PM2_TOP = 253;
 
-// x^(p-2) in the Montgomery domain (1/x, and 0 for x = 0) over a fixed
-// window of 4 bits: x^d for d = 1..15 in a table (one square, 13
-// products), p - 2's top digit, 3, then for each of the 63 digits below it
-// four squares and, for the 59 nonzero ones, a product by x^d: 253 squares
-// and 72 products, where a bit at a time (field.cuh's fp_pow_bits) takes
-// 253 and 109. The digits come from the constant bank, one word a 32
-// steps.
-static __device__ __forceinline__ Fp fp32_inv(const Fp& x) {
+// x^e in the Montgomery domain for a static e >= 1 (0 for x = 0) over a
+// fixed window of 4 bits. e comes as its 32-bit words, least significant
+// first, and ``top``, the bit of its leading one: ``words`` is anything
+// indexable (the constant bank's PM2_WORDS, a kernel parameter, or a reader
+// of device memory; words[k] is read for k <= top / 32, once a word, and is
+// the same across a warp). x^d for d = 1..15 in a table (one square, 13 products), r the top
+// digit's entry (the digit at bit top & ~3, never 0), then for each of the
+// top / 4 digits below it four squares and, for a nonzero one, a product by
+// x^d. For p - 2: 253 squares and 72 products, where a bit at a time
+// (field.cuh's fp_pow_bits) takes 253 and 109. e < 16 is the top digit
+// alone: e = 1 returns x. Every step is fp32_sq or fp32_mul, so the output
+// is below 2p with digits below 2^13; its digits may differ by p from the
+// bit chain's, whose products fall in another order.
+template <typename Words>
+static __device__ __forceinline__ Fp fp32_pow_w4(const Fp& x, const Words& words, int top) {
   Fp tab[16];  // tab[d] = x^d; the digit indexes it at run time: local memory
   tab[1] = x;
   tab[2] = fp32_sq(x);
 #pragma unroll 1
   for (int d = 3; d < 16; ++d) tab[d] = fp32_mul(tab[d - 1], x);
-  Fp r = tab[3];
+  const int lead = top & ~3;
+  uint32_t word = words[top >> 5];
+  Fp r = tab[(word >> (lead & 31)) & 15u];
 #pragma unroll 1
-  for (int i = PM2_TOP - 2; i >= 0; --i) {
+  for (int i = lead - 1; i >= 0; --i) {
     r = fp32_sq(r);
+    if ((i & 31) == 31) word = words[i >> 5];
     if ((i & 3) == 0) {
-      const uint32_t d = (PM2_WORDS[i >> 5] >> (i & 31)) & 15u;
+      const uint32_t d = (word >> (i & 31)) & 15u;
       if (d) r = fp32_mul(r, tab[d]);
     }
   }
   return r;
+}
+
+// x^(p-2): 1/x, and 0 for x = 0 (kernel G's chain). p - 2's top digit is 3.
+static __device__ __forceinline__ Fp fp32_inv(const Fp& x) {
+  return fp32_pow_w4(x, PM2_WORDS, PM2_TOP);
 }
 
 }  // namespace pt

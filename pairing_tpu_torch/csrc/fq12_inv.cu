@@ -14,9 +14,10 @@
 //   n = d0 t0 + xi (d1 t2 + d2 t1) in Fq2, n^-1 = (n0 - n1 u) / N,
 //   N = n0^2 + n1^2 in Fq, N^-1 = N^(p-2).
 //
-// Bound on the H100: integer multiply-adds. The Fermat chain of N (253
-// squares and 72 products over 4-bit windows) takes at least 240 k 32-bit
-// IMADs a lane, the tower at least 75 k (chip_smoke.py counts both). The
+// Bound on the H100: integer multiply-adds. The Fermat chain of N takes at
+// least 223 k 32-bit IMADs a lane (the best sliding window, 5 bits: 253
+// squares and 53 products; the fixed 4-bit window below takes 72 products,
+// 240 k), the tower at least 75 k (chip_smoke.py counts both). The
 // first port ran everything in one thread per lane: the Fq6 temporaries in
 // local memory, every Fq product in 64-bit columns and the chain's squares
 // as full products (255 registers, 3,240 B of stack).

@@ -3,12 +3,13 @@
 The counterpart of ``pairing_tpu/ops/fp_kernels.py``'s
 ``fp_pow_bits_pallas``: the Fermat inversion a^(p-2) behind
 ``fields.fp.fp_inv`` (the one Fq2 inversion between the two Phase N
-passes). The exponent enters as its MSB-first bits after the leading one,
-in a small device array that every thread reads.
+passes). The kernel runs kernel G's 4-bit window chain (``csrc/field32.cuh``,
+``fp32_pow_w4``) for any static e >= 1; the exponent enters as its 32-bit
+words, least significant first, from a small device array, and the bit of
+its leading one.
 
-Kernel G's chain (``csrc/field32.cuh``, ``fp32_inv``) runs the inverse's
-fixed schedule instead, compiled in: ``inverse_schedule`` gives the same
-words.
+Kernel G's chain (``fp32_inv``) runs the inverse's fixed schedule with the
+words compiled in: ``inverse_schedule`` gives the same words.
 """
 
 from __future__ import annotations
@@ -26,23 +27,30 @@ from .fq12_kernels import kfp_view, kstack
 FP_POW_BITS = dispatch.KERNELS["fp_pow_bits"]
 
 
-@lru_cache(maxsize=None)
-def exponent_bits(e: int, device: torch.device) -> torch.Tensor:
-    """MSB-first bits of e >= 1 after its leading one, int32 on ``device``."""
+def words_of(e: int) -> tuple:
+    """(32-bit words of e >= 1, least significant first; the bit of its
+    leading one). Bit i of e is bit i % 32 of word i // 32; its 4-bit window
+    digit at i (a multiple of 4) is (word >> i % 32) & 15."""
     if e < 1:
         raise ValueError("exponent must be >= 1")
-    bits = np.asarray([int(b) for b in bin(e)[3:]], np.int32)
-    return torch.as_tensor(bits, device=device)
+    top = e.bit_length() - 1
+    return tuple((e >> (32 * k)) & 0xFFFFFFFF for k in range(top // 32 + 1)), top
+
+
+@lru_cache(maxsize=None)
+def exponent_words(e: int, device: torch.device) -> tuple:
+    """e's words as int32 (the same 32 bits) on ``device`` and its top bit,
+    as the kernel takes them."""
+    words, top = words_of(e)
+    return torch.as_tensor(np.asarray(words, np.uint32).view(np.int32), device=device), top
 
 
 @lru_cache(maxsize=None)
 def inverse_schedule() -> tuple:
     """The Fermat inverse's exponent p - 2 as kernel G's chain reads it:
     (eight 32-bit words, least significant first; the bit of its leading
-    one). Bit i of the exponent is bit i % 32 of word i // 32; its 4-bit
-    window digit at i (a multiple of 4) is (word >> i % 32) & 15."""
-    e = F.P - 2
-    return tuple((e >> (32 * k)) & 0xFFFFFFFF for k in range(8)), e.bit_length() - 1
+    one)."""
+    return words_of(F.P - 2)
 
 
 def fp_pow_bits_plain(a: torch.Tensor, e: int) -> torch.Tensor:
@@ -57,9 +65,9 @@ def fp_pow_bits(a: torch.Tensor, e: int) -> torch.Tensor:
         return fp_pow_bits_plain(a, e)
     lanes = a.shape[-1]
     dispatch.check_operand(a, "a", (), lanes)
-    bits = exponent_bits(e, a.device)
+    words, top = exponent_words(e, a.device)
     out = torch.empty_like(a)
-    FP_POW_BITS(a, bits, bits.numel(), out, lanes)
+    FP_POW_BITS(a, words, words.numel(), top, out, lanes)
     return out
 
 

@@ -68,13 +68,26 @@ def test_fq12_mul_kernel_matches_plain(gen, lanes):
     assert FK.FQ12_MUL.launches == before + 1
 
 
-@pytest.mark.parametrize("lanes", [1, 129, 2048])
-def test_cyc_sq_kernel_matches_plain(gen, lanes):
+#: Kernel B runs kernel A's blocks of 32 lanes, one warp per output
+#: component: these lane counts cut a block at the edge.
+CYC_SQ_LANE_COUNTS = [1, 31, 32, 33, 129, 2048, 16391]
+
+
+@pytest.mark.parametrize("inputs", ["cyclotomic", "random"])
+@pytest.mark.parametrize("lanes", CYC_SQ_LANE_COUNTS)
+def test_cyc_sq_kernel_matches_plain(gen, lanes, inputs):
+    """Kernel B on the easy part's outputs and on random operands with the
+    edge lanes of kernel G's cases (zero, one, limbs of 2^13 and 2^13 + 1,
+    values just below 2p): equal to kcyc_sq_plain on canonical values."""
     from pairing_tpu_torch.ops import klayout as KL
     from pairing_tpu_torch.pairing.final_exp import easy_part_k
 
-    m = easy_part_k(rand_kf12((12,), lanes, gen))
-    assert_same(KL.kcyc_sq(m), KL.kcyc_sq_plain(m))
+    a = fq12_inv_edge_operand(lanes, gen)
+    m = easy_part_k(a) if inputs == "cyclotomic" else a
+    before = KL.FQ12_CYC_SQ.launches
+    got = KL.kcyc_sq(m)
+    assert KL.FQ12_CYC_SQ.launches == before + 1
+    assert_same(got, KL.kcyc_sq_plain(m))
 
 
 #: Kernels C, D and K12 run six threads per lane, five lanes per warp, 20
@@ -128,14 +141,47 @@ def test_slotwise_kernel_matches_plain(gen, lanes, power):
     assert KL.FQ12_SLOTWISE.launches == before + 1
 
 
-@pytest.mark.parametrize("lanes", [1, 129, 2048])
-def test_fp_pow_bits_kernel_matches_plain(gen, lanes):
-    from pairing_tpu_torch.ops import fp_kernels as FPK
+#: Kernel F runs one lane a thread, 128 lanes a block: these lane counts cut
+#: a block at the edge (65,539 = the K = 4 path's lanes and three).
+FP_POW_LANE_COUNTS = [1, 127, 128, 129, 16391, 65539]
+#: The short exponents (e < 16 is the window's top digit alone), one digit
+#: and the next, a 7-bit one, p - 2, one longer than p and one of 19 words.
+FP_POW_EXPONENTS = ["1", "2", "15", "16", "17", "0b1011001", "p-2", "300-bit", "600-bit"]
+LONG_EXPONENT_SEEDS = {300: 1130, 600: 1140}
+
+
+def fp_pow_exponent(name: str) -> int:
     from pairing_tpu_torch.utils.bn254 import P
 
-    a = rand_kf12((), lanes, gen)
-    for e in (1, 0b1011001, P - 2):
-        assert_same(FPK.fp_pow_bits(a, e), FPK.fp_pow_bits_plain(a, e))
+    if name == "p-2":
+        return P - 2
+    if name.endswith("-bit"):
+        bits = int(name[:-4])
+        rng = np.random.default_rng(LONG_EXPONENT_SEEDS[bits])
+        return int.from_bytes(rng.bytes(bits // 8 + 1), "little") % (1 << (bits - 1)) | (
+            1 << (bits - 1))
+    return int(name, 0)
+
+
+@pytest.mark.parametrize("e", FP_POW_EXPONENTS)
+@pytest.mark.parametrize("lanes", FP_POW_LANE_COUNTS)
+def test_fp_pow_bits_kernel_matches_plain(gen, lanes, e):
+    """Kernel F equal to fp_pow_bits_plain on canonical values, in the
+    envelope, with kernel G's edge lanes (zero, one, settled limbs, values
+    just below 2p) in component 0: zero stays zero and one stays one."""
+    from pairing_tpu_torch.ops import fp_kernels as FPK
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical
+
+    a = fq12_inv_edge_operand(lanes, gen)[0].contiguous()
+    e = fp_pow_exponent(e)
+    before = FPK.FP_POW_BITS.launches
+    got = FPK.fp_pow_bits(a, e)
+    assert FPK.FP_POW_BITS.launches == before + 1
+    assert_same(got, FPK.fp_pow_bits_plain(a, e))
+    canon = kf12_canonical(got)
+    assert bool((canon[:, 0] == 0).all())
+    if lanes > 1:
+        assert torch.equal(canon[:, 1], kf12_canonical(a)[:, 1])
 
 
 @pytest.mark.parametrize("lanes", [33, 1024])

@@ -51,9 +51,20 @@ def test_fp_inv_through_kernel_f_matches_jax():
     assert mont_ints(out.limbs.numpy()) == mont_ints(JF.fp_inv(j).limbs)
 
 
-def test_exponent_bits():
-    bits = FPK.exponent_bits(0b1011001, torch.device("cpu"))
-    assert bits.dtype == torch.int32 and bits.tolist() == [0, 1, 1, 0, 0, 1]
-    assert FPK.exponent_bits(1, torch.device("cpu")).numel() == 0
+def test_exponent_words():
+    words, top = FPK.exponent_words(0b1011001, torch.device("cpu"))
+    assert words.dtype == torch.int32 and words.tolist() == [0b1011001] and top == 6
+    words, top = FPK.exponent_words(1, torch.device("cpu"))
+    assert words.tolist() == [1] and top == 0
+    e = c.P - 2
+    words, top = FPK.exponent_words(e, torch.device("cpu"))
+    assert top == 253 and words.numel() == 8
+    assert sum((w & 0xFFFFFFFF) << (32 * k) for k, w in enumerate(words.tolist())) == e
+    assert FPK.exponent_words((1 << 32) - 1, torch.device("cpu"))[0].tolist() == [-1]
+    assert FPK.exponent_words(1 << 32, torch.device("cpu"))[0].tolist() == [0, 1]
+    assert FPK.exponent_words(1 << 600, torch.device("cpu"))[0].numel() == 19
+    # the kernel reads every exponent's words from the operand's device
+    for e in (1, c.P - 2, 1 << 600):
+        assert FPK.exponent_words(e, torch.device("cpu"))[0].device == torch.device("cpu")
     with pytest.raises(ValueError):
-        FPK.exponent_bits(0, torch.device("cpu"))
+        FPK.exponent_words(0, torch.device("cpu"))

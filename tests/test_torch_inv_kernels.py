@@ -11,6 +11,10 @@ modelled in numpy and held against the field library and the oracle.
   ``tools/ig_variants.cu`` runs it), run with the field library's
   Montgomery product, must equal ``fields.fp.fp_pow_bits(x, P - 2)`` on
   canonical values, x = 0 included.
+* Kernel F's chain (``fp32_pow_w4``, the same window over any exponent's
+  words, one word read a 32 bits), in exact Montgomery steps, must equal
+  ``fp_kernels.fp_pow_bits_plain`` and the oracle for exponents from 1 to
+  one longer than p, every output below 2p; e = 1 gives x itself.
 * The tower's split into one thread per output component: the level and
   term tables of ``fq12_inv.cu`` (read from the source) run on 32-bit
   column sums, with a carry-save fold between terms and the window chain
@@ -170,16 +174,22 @@ def chain_bits(x, words, top, mul):
 
 
 def chain_w4(x, words, top, mul):
-    """fp32_inv's steps: a table of x^1..x^15, the top digit, then four
-    squares and a product by the digit's entry per window."""
+    """fp32_pow_w4's steps: a table of x^1..x^15, the entry of the top digit
+    (at bit top & ~3), then four squares and a product by the digit's entry
+    per lower digit; the word in hand is replaced when the chain crosses
+    into the next word down."""
     tab = [None, x, mul(x, x)]
     for _ in range(3, 16):
         tab.append(mul(tab[-1], x))
-    r = tab[3]  # p - 2's top digit
-    for i in range(top - 2, -1, -1):
+    lead = top & ~3
+    word = words[top >> 5]
+    r = tab[(word >> (lead & 31)) & 15]
+    for i in range(lead - 1, -1, -1):
         r = mul(r, r)
+        if i & 31 == 31:
+            word = words[i >> 5]
         if i & 3 == 0:
-            d = (words[i >> 5] >> (i & 31)) & 15
+            d = (word >> (i & 31)) & 15
             if d:
                 r = mul(r, tab[d])
     return r
@@ -203,6 +213,43 @@ def test_inverse_schedule_matches_source_and_fp_pow_bits():
     rinv = pow(R_MONT, -1, c.P)
     assert [TF.limbs_to_int(r) * rinv % c.P for r in want.numpy()] == [
         pow(v, c.P - 2, c.P) for v in vals]
+
+
+def long_exponent(bits: int, seed: int) -> int:
+    """A seeded exponent whose leading one is bit ``bits`` - 1."""
+    rng = np.random.default_rng(seed)
+    return int.from_bytes(rng.bytes(bits // 8 + 1), "little") % (1 << (bits - 1)) | (
+        1 << (bits - 1))
+
+
+#: Kernel F's exponents: the short ones (e = 1 and e < 16 are the top digit
+#: alone), one digit and the next, a 7-bit one, p - 2, one longer than p, and
+#: one longer than the kernel's parameter holds (from device memory).
+F_EXPONENTS = {"1": 1, "2": 2, "15": 15, "16": 16, "17": 17, "0b1011001": 0b1011001,
+               "p-2": c.P - 2, "300-bit": long_exponent(300, 1130),
+               "600-bit": long_exponent(600, 1140)}
+
+
+@pytest.mark.parametrize("name", list(F_EXPONENTS))
+def test_kernel_f_window_chain_matches_plain_and_oracle(name):
+    e = F_EXPONENTS[name]
+    words, top = FPK.words_of(e)
+    assert sum(w << (32 * k) for k, w in enumerate(words)) == e and top == e.bit_length() - 1
+    rng = np.random.default_rng(1131)
+    one = R_MONT % c.P  # Montgomery one
+    xs = [0, one, c.P - 1, 2 * c.P - 1] + [int.from_bytes(rng.bytes(40), "little") % (2 * c.P)
+                                           for _ in range(4)]
+    got = [chain_w4(x, words, top, lambda u, v: exact_mont(u * v)) for x in xs]
+    assert all(g < 2 * c.P for g in got)
+    if e == 1:
+        assert got == xs
+    assert got[0] == 0 and got[1] % c.P == one
+    arr = torch.as_tensor(np.ascontiguousarray(digits(xs).T.astype(np.int32)))  # [21, B]
+    want = FPK.fp_pow_bits_plain(arr, e)
+    assert FK.kf12_in_envelope(want)
+    assert [g % c.P for g in got] == value(FK.kf12_canonical(want).T.numpy().astype(np.uint64))
+    rinv = pow(R_MONT, -1, c.P)
+    assert [g * rinv % c.P for g in got] == [pow(x * rinv % c.P, e, c.P) for x in xs]
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,8 @@ Builds ``tools/ig_variants.cu`` (one nvcc, into the git-ignored
   4. times each at 16384 and 65,536 lanes with CUDA events, 10 launches a
      turn, four turns in alternating order, and G's stages alone beside
      kernel F (``fp_kernels.fp_pow_bits`` for p - 2: the same power as G's
-     chain, one thread per lane on field.cuh's 64-bit columns); prints the
-     turns, their means and one JSON line.
+     chain, one thread per lane); prints the turns, their means and one
+     JSON line.
 
 Any difference raises. Needs a CUDA device and nvcc; prints the card's name
 and power limit first.
@@ -50,7 +50,7 @@ from pairing_tpu_torch.ops import build  # noqa: E402
 from pairing_tpu_torch.ops import fq12_kernels as FK  # noqa: E402
 from pairing_tpu_torch.ops import klayout as KL  # noqa: E402
 from pairing_tpu_torch.ops import norm_kernels as NK  # noqa: E402
-from pairing_tpu_torch.ops.fp_kernels import exponent_bits, fp_pow_bits  # noqa: E402
+from pairing_tpu_torch.ops.fp_kernels import fp_pow_bits  # noqa: E402
 
 SOURCE = Path(__file__).resolve().parent / "ig_variants.cu"
 OUT = ROOT / "build" / "ig_variants"
@@ -158,7 +158,9 @@ def main():
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    bits = exponent_bits(F.P - 2, torch.device("cuda"))
+    # p - 2's bits after its leading one, for the old kernel's fp_pow_bits
+    bits = torch.tensor([int(b) for b in bin(F.P - 2)[3:]], dtype=torch.int32,
+                        device="cuda")
     results = {}
     for lanes in LANE_COUNTS:
         # kernel I
