@@ -51,18 +51,22 @@ Step 2 also holds B on random inputs beside cyclotomic ones, K15, K16,
 K17, K18 and kernel A's sparse mode (both line shapes) against their plain
 versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
-redesigned kernels, A and B (A in both modes; one thread per output
+redesigned kernels, A, B and E (A in both modes; one thread per output
 component and lane), C (all three modes), D and K12 (six threads a lane),
 F (one thread a lane, G's window chain), G (three launches: the tower to
 the norm and back one thread per output component, the Fermat chain one
-thread per lane), H (two), I (two), J (four) and K (one thread per line
-and lane), in the JSON line also carry their
+thread per lane), H (two), I (two), J (four), K (one thread per line and
+lane) and K13 (one thread per state and lane), in the JSON line also carry their
 registers, stack, spill and shared bytes per block from this build's ptxas
 report (G's second and third kernels under ``ptxas_more``; the shared
 memory of G, H and K12 is dynamic, so the report shows none; their entries
 give the bytes they ask for at launch). The entries of I, J and F also
-carry their times at the K = 4 path's 65,536 lanes. Every kernel's line
-gives its share of its bound.
+carry their times at the K = 4 path's 65,536 lanes; E's carries each
+program's device time (replayed from a CUDA graph: launched call by call
+E would be timed at the host's pace, kept as ``ms_eager``) and bound
+under ``programs`` (the conjugate and the powers 1, 2, 3), its ms and
+bound the means of theirs. K13 is also checked in the witness
+path's segment form. Every kernel's line gives its share of its bound.
 Launch counts are set to 0 just before each of the paths of steps 3-7 and
 read just after; every kernel the path runs must have launched in it.
 
@@ -237,6 +241,25 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of fn() per call, replayed from a CUDA graph of ``reps``
+    calls: no host time between launches, for a kernel that takes about as
+    long as its wrapper's call (the caller has warmed fn up)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = timed_ms(graph.replay, 1) / reps
+    del graph
+    return ms
+
+
 def nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -330,6 +353,46 @@ def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0, *more
               f"{props['shared_bytes_per_block']} B shared per block (ptxas, {name})", flush=True)
 
 
+def slot_imads(power) -> int:
+    """Kernel E's least count for one program: a product by a real constant
+    (p^2's) is two Fq products, a complex one a Karatsuba Fq2 product; each
+    output coefficient reduced once."""
+    from pairing_tpu_torch.ops import klayout as KL
+
+    ops, consts = KL._slot_prog(power)
+    return sum(2 * FP_MUL if not consts[i, 1].any() else FP2_MUL
+               for i in range(6) if ops[i] & KL.MUL_CONST)
+
+
+def per_program(entry: dict, bound, programs, run, imads, n_bytes: int) -> None:
+    """A kernel of several programs that takes about as long as its
+    wrapper's call (E): each program's device time (``graph_ms``), its time
+    launched call by call (``ms_eager``, the host's pace) and its bound into
+    ``entry["programs"]``; the entry's ms and bound become the means of
+    theirs, its ms launched call by call (``compare_kernel``'s) ms_eager."""
+    rows, bounds = {}, []
+    for prog in programs:
+        fn = run(prog)
+        fn()
+        ms, eager = graph_ms(fn, KERNEL_REPS), timed_ms(fn, KERNEL_REPS)
+        bound_ms, bound_by = bound(imads(prog), n_bytes)
+        bounds.append((bound_ms, bound_by))
+        rows[str(prog)] = {"ms": ms, "ms_eager": eager, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "share": bound_ms / ms}
+        print(f"{entry['name']} program {prog}: {ms:.5f} ms replayed from a CUDA graph "
+              f"({eager:.5f} launched call by call), bound {bound_ms:.5f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of it", flush=True)
+    entry["programs"] = rows
+    entry["ms_eager"] = entry["ms"]
+    entry["ms"] = sum(r["ms"] for r in rows.values()) / len(rows)
+    entry["bound_ms"] = sum(b for b, _ in bounds) / len(bounds)
+    by = {k: sum(b for b, w in bounds if w == k) for k in ("bytes", "operations")}
+    entry["bound_by"] = max(by, key=by.get)
+    print(f"{entry['name']}: mean {entry['ms']:.5f} ms ({entry['ms_eager']:.5f} launched call "
+          f"by call), mean of the programs' bounds {entry['bound_ms']:.5f} ms, "
+          f"{100 * entry['bound_ms'] / entry['ms']:.1f}% of it", flush=True)
+
+
 def wide_case(entry: dict, bound, run, plain, imads: float, inputs) -> None:
     """A kernel at the K = 4 path's 65,536 lanes (kernels I, J and F run
     there on ``multi_pairing``): equal to its plain version on canonical
@@ -411,11 +474,15 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     add_ptxas(results["pow_ladder_stream"], ptxas_log, "k_pow_ladder_stream")
 
     powers = (None, 1, 2, 3)  # the conjugate and the three Frobenius maps
-    n_const = sum(int(np.count_nonzero(KL._slot_prog(pw)[0] & KL.MUL_CONST)) for pw in powers)
     compare_kernel("fq12_slotwise",
                    lambda: tuple(KL.slotwise(a, pw) for pw in powers),
                    lambda: tuple(KL.slotwise_plain(a, pw) for pw in powers), results, bound,
-                   B * n_const * FP2_MUL, len(powers) * nbytes((a,)), calls=len(powers))
+                   B * sum(slot_imads(pw) for pw in powers), len(powers) * nbytes((a,)),
+                   calls=len(powers))
+    add_ptxas(results["fq12_slotwise"], ptxas_log, "k_fq12_slotwise")
+    per_program(results["fq12_slotwise"], bound, powers,
+                lambda pw: lambda: KL.slotwise(a, pw), lambda pw: B * slot_imads(pw),
+                2 * nbytes((a,)))
 
     x = rand()
     compare_kernel("fp_pow_bits", lambda: FPK.fp_pow_bits(x, P - 2),
@@ -494,7 +561,18 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("affine_export", lambda: VM.affine_export(xy, zi),
                    lambda: VM.affine_export_plain(xy, zi), results, bound,
                    B * n_states * (FP2_SQ + 3 * FP2_MUL), nbytes((xy, zi)))
-    del xy, zi
+    add_ptxas(results["affine_export"], ptxas_log, "k_affine_export")
+    # the witness path's form: the Miller loop's four segments, six rows a state
+    rows6 = torch.zeros((n_states, 6, 21, B), dtype=torch.int32, device=DEVICE)
+    rows6[:, 0:4] = xy
+    cut = ML.N_STEPS
+    segs = (rows6[:cut, 0:4], rows6[cut:2 * cut, 0:4], rows6[2 * cut:2 * cut + 1, 0:4],
+            rows6[2 * cut + 1:, 0:4])
+    check(torch.equal(VM.affine_export(segs, zi), VM.affine_export(xy, zi)),
+          "affine_export: the segment form differs from the single tensor")
+    print("affine_export: the segment form (four segments, six rows a state) equals the single "
+          "tensor limb for limb", flush=True)
+    del xy, zi, rows6, segs
 
     # this slice's kernels: K18, kernel A's sparse mode, K16, K17, K15
     compare_kernel("fq12_sq", lambda: FK.fq12_sq(a), lambda: FK.fq12_sq_plain(a), results, bound,

@@ -51,7 +51,7 @@ ENTRY_POINTS = {
     "pt_running_inverse": (_P, _P, _P, _I, _P, _I, _P),
     "pt_lines": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P),
     "pt_exp_bits": (_P, _P, _I, _P, _I, _P),
-    "pt_affine_export": (_P, _P, _I, _P, _I, _P),
+    "pt_affine_export": (_P, _I, _P, _I, _P, _I, _P),
     "pt_pow_ladder": (_P, _P, _P, _I, _P, _I, _P),
     "pt_pow_ladder_w4": (_P, _P, _I, _P, _P, _I, _P),
     "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P),

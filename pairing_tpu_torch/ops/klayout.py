@@ -84,9 +84,11 @@ def _slot_prog(power):
 
 
 @lru_cache(maxsize=None)
-def _slot_prog_on(power, device: torch.device):
+def _slot_prog_host(power):
+    """The program as host tensors: the C entry point folds it into the
+    kernel's parameter table before the launch."""
     ops, consts = _slot_prog(power)
-    return torch.as_tensor(ops, device=device), torch.as_tensor(consts, device=device)
+    return torch.as_tensor(ops), torch.as_tensor(consts)
 
 
 def slotwise_plain(a: torch.Tensor, power) -> torch.Tensor:
@@ -101,7 +103,7 @@ def slotwise(a: torch.Tensor, power) -> torch.Tensor:
         return slotwise_plain(a, power)
     lanes = a.shape[-1]
     dispatch.check_operand(a, "a", (12,), lanes)
-    ops, consts = _slot_prog_on(power, a.device)
+    ops, consts = _slot_prog_host(power)
     out = torch.empty_like(a)
     FQ12_SLOTWISE(a, ops, consts, out, lanes)
     return out

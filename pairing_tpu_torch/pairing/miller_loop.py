@@ -132,9 +132,9 @@ def _miller_core(qs: G2, ps: G1, collect: bool = False):
 
     # The witness payload, every entry in the reference's public layout.
     with record_function("witness.affine_export"):
-        # serialize order: tops 0..63, post-doubles 64..127, end 128, end + Q1 129
-        xy = torch.cat([tops[:, 0:4], dbls[:, 0:4], end[None, 0:4], st91[None, 0:4]])
-        aff = affine_export(xy, zinv)
+        # serialize order: tops 0..63, post-doubles 64..127, end 128, end + Q1 129;
+        # the kernel reads each segment where it lies
+        aff = affine_export((tops[:, 0:4], dbls[:, 0:4], end[None, 0:4], st91[None, 0:4]), zinv)
     inner = kshape[1:]
     trace = {
         "f_steps": tuple((_public(fs[:N_STEPS, 2 * i], inner), _public(fs[:N_STEPS, 2 * i + 1], inner))

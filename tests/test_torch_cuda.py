@@ -130,15 +130,24 @@ def test_pow_ladder_kernel_matches_plain(gen, lanes, e):
     assert_same(got, FU.pow_ladder_stream_plain(stream, digits, rows))
 
 
-@pytest.mark.parametrize("lanes", [1, 129, 2048])
-@pytest.mark.parametrize("power", [None, 1, 2, 3])
+#: Kernel E runs blocks of 128 lanes of one output component: these lane
+#: counts cut a block at the edge; 16384 is the main path's.
+SLOTWISE_LANE_COUNTS = [1, 129, 2048, 16384]
+
+
+@pytest.mark.parametrize("lanes", SLOTWISE_LANE_COUNTS)
+@pytest.mark.parametrize("power", [None, 1, 2, 3, 6])
 def test_slotwise_kernel_matches_plain(gen, lanes, power):
+    """Kernel E on random operands with G's edge lanes (zero, one, limbs of
+    2^13 and 2^13 + 1, values just below 2p): equal to slotwise_plain on
+    canonical values, one launch a call."""
     from pairing_tpu_torch.ops import klayout as KL
 
-    a = rand_kf12((12,), lanes, gen)
+    a = fq12_inv_edge_operand(lanes, gen)
     before = KL.FQ12_SLOTWISE.launches
-    assert_same(KL.slotwise(a, power), KL.slotwise_plain(a, power))
+    got = KL.slotwise(a, power)
     assert KL.FQ12_SLOTWISE.launches == before + 1
+    assert_same(got, KL.slotwise_plain(a, power))
 
 
 #: Kernel F runs one lane a thread, 128 lanes a block: these lane counts cut
@@ -442,12 +451,31 @@ def test_exp_bits_kernel_matches_plain(gen, lanes, bits):
     assert_same((out, rows), (want[-1], want))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
-def test_affine_export_kernel_matches_plain(gen, lanes):
+#: Kernel K13 runs blocks of 128 lanes of one state: these lane counts cut
+#: a block at the edge; 16384 is the witness path's.
+AFFINE_EXPORT_LANE_COUNTS = [1, 33, 1024, 16384]
+
+
+@pytest.mark.parametrize("form", ["tensor", "segments"])
+@pytest.mark.parametrize("lanes", AFFINE_EXPORT_LANE_COUNTS)
+def test_affine_export_kernel_matches_plain(gen, lanes, form):
+    """Kernel K13 over 130 states, as one tensor [130, 4, 21, lanes] or as
+    the Miller loop's four segments (tops and post-doubles six rows a
+    state, sliced [:, 0:4], then end and end + Q1): equal to
+    affine_export_plain on canonical values, one launch a call."""
     from pairing_tpu_torch.ops import fq2_vm as VM
 
-    xy, zinv = rand_kf12((130, 4), lanes, gen), rand_kf12((130, 2), lanes, gen)
-    assert_same(VM.affine_export(xy, zinv), VM.affine_export_plain(xy, zinv))
+    zinv = rand_kf12((130, 2), lanes, gen)
+    if form == "tensor":
+        xy = rand_kf12((130, 4), lanes, gen)
+    else:
+        tops, dbls, end, st91 = (rand_kf12(lead, lanes, gen)
+                                 for lead in ((64, 6), (64, 6), (6,), (6,)))
+        xy = (tops[:, 0:4], dbls[:, 0:4], end[None, 0:4], st91[None, 0:4])
+    before = VM.AFFINE_EXPORT.launches
+    got = VM.affine_export(xy, zinv)
+    assert VM.AFFINE_EXPORT.launches == before + 1
+    assert_same(got, VM.affine_export_plain(xy, zinv))
 
 
 def _seeded_points(n, seed):
