@@ -52,15 +52,16 @@ K17, K18 and kernel A's sparse mode (both line shapes) against their plain
 versions, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side. The entries of the
 redesigned kernels, A, B and E (A in both modes; one thread per output
-component and lane), C (all three modes), D and K12 (six threads a lane),
-F (one thread a lane, G's window chain), G (three launches: the tower to
-the norm and back one thread per output component, the Fermat chain one
-thread per lane), H (two), I (two), J (four), K (one thread per line and
-lane) and K13 (one thread per state and lane), in the JSON line also carry their
-registers, stack, spill and shared bytes per block from this build's ptxas
-report (G's second and third kernels under ``ptxas_more``; the shared
-memory of G, H and K12 is dynamic, so the report shows none; their entries
-give the bytes they ask for at launch). The entries of I, J and F also
+component and lane), C (all three modes), D, K12, K16 and K17 (six threads
+a lane), F (one thread a lane, G's window chain), G (three launches: the
+tower to the norm and back one thread per output component, the Fermat
+chain one thread per lane), H (two), I (two), J (four), K (one thread per
+line and lane) and K13 (one thread per state and lane), in the JSON line
+also carry their registers, stack, spill and shared bytes per block from
+this build's ptxas report (G's second and third kernels under
+``ptxas_more``; the shared memory of G, H, K12, K16 and K17 is dynamic, so
+the report shows none; their entries give the bytes they ask for at
+launch). The entries of I, J and F also
 carry their times at the K = 4 path's 65,536 lanes; E's carries each
 program's device time (replayed from a CUDA graph: launched call by call
 E would be timed at the host's pace, kept as ``ms_eager``) and bound
@@ -320,8 +321,10 @@ def compare_kernel(name, kernel_fn, plain_fn, results, bound, imads, in_bytes, c
 def ptxas_entry(log: str, kernel: str) -> dict:
     """Registers, stack, spill and static shared bytes of one kernel from
     nvcc's -Xptxas -v report (the lines from its 'Compiling entry function'
-    to the next)."""
-    m = re.search(r"Compiling entry function '\w*%s\w*'" % kernel, log)
+    to the next). The mangled name must hold ``kernel`` whole: its length,
+    the name, then the E that closes it (k_pow_ladder is not
+    k_pow_ladder_w4)."""
+    m = re.search(r"Compiling entry function '_Z\w*?\d%sE\w*'" % kernel, log)
     check(m is not None, f"ptxas report has no entry {kernel}")
     block = log[m.end():].split("Compiling entry function")[0]
     props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -594,9 +597,12 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("pow_ladder", lambda: FU.pow_ladder(m, mc, naf),
                    lambda: FU.pow_ladder_plain(m, mc, naf), results, bound,
                    B * ladder_imads(naf, True), nbytes((m, mc)))
+    add_ptxas(results["pow_ladder"], ptxas_log, "k_pow_ladder", lib.pt_pow_ladder_shared_bytes())
     compare_kernel("pow_ladder_w4", lambda: FU.pow_ladder_w4(m, w4),
                    lambda: FU.pow_ladder_w4_plain(m, w4), results, bound,
                    B * (CYC_SQ + 3 * FQ12_DENSE + ladder_imads(w4, False)), nbytes((m,)))
+    add_ptxas(results["pow_ladder_w4"], ptxas_log, "k_pow_ladder_w4",
+              lib.pt_pow_ladder_w4_shared_bytes())
     # the three ladder designs for m^BN_X on one m: one value, times side by side
     mx = FU.pow_x_streamed(m)
     same = [kf12_canonical(FU.pow_ladder(m, mc, naf)), kf12_canonical(FU.pow_ladder_w4(m, w4))]

@@ -493,23 +493,6 @@ static __device__ __forceinline__ void load_fq12_rw(Fq12& f, const int32_t* src,
   for (int c = 0; c < 12; ++c) load_fp_rw(f.c[c], src + c * NL * lanes, lanes);
 }
 
-// The w-NAF table entry of digit d (odd, |d| <= 7) into f: row |d| >> 1 of
-// the scratch table ``tab`` [rows, 12, 21, lanes] (``tab`` points at this
-// lane's column of row 0), conjugated when d < 0 (slots 1, 3, 5 negated as
-// 2p - x). The digit is the same in every lane: a uniform branch.
-static __device__ __noinline__ void fq12_signed_entry(const int32_t* tab, size_t lanes, int d,
-                                                      Fq12& f) {
-  const int row = (d < 0 ? -d : d) >> 1;
-  load_fq12_rw(f, tab + (size_t)row * 12 * NL * lanes, lanes);
-  if (d < 0) {
-#pragma unroll 1
-    for (int c = 2; c < 12; c += 4) {  // components of slots 1, 3, 5
-      f.c[c] = fp_neg(f.c[c]);
-      f.c[c + 1] = fp_neg(f.c[c + 1]);
-    }
-  }
-}
-
 constexpr unsigned DENSE = 0x3f;
 constexpr unsigned S034 = (1u << 0) | (1u << 3) | (1u << 4);
 constexpr unsigned S235 = (1u << 2) | (1u << 3) | (1u << 5);

@@ -1,5 +1,6 @@
 // Fq12 routines split over a group of six threads per lane, for kernels C
-// (csrc/miller_f.cu), D (csrc/pow_ladder.cu) and K12 (csrc/exp_bits.cu).
+// (csrc/miller_f.cu), D (csrc/pow_ladder.cu), K12 (csrc/exp_bits.cu), K16
+// (csrc/pow_naf.cu) and K17 (csrc/pow_w4.cu).
 //
 // field.cuh runs a whole Fq12 product in one thread: 252 words of operand
 // beside a 42-word 64-bit accumulator do not fit the 255-register file, so
@@ -232,6 +233,17 @@ static __device__ __forceinline__ void group_fq12_mul(uint32_t* f, const uint32_
   uint32_t r0[PACKED];
   pack_digits(group_mul_part(f, b, s, 0), r0);
   group_write_slot(f, s, r0, group_mul_part(f, b, s, 1));
+}
+
+// dst <- a * b for the lane (b dense); dst may be a or b, since every rank
+// reads all of both before any rank writes. Kernel K17 runs its table's
+// products (m2 * f, the plain version's operand order) and its ladder's (f
+// times the staged entry) through this one call site.
+static __device__ __forceinline__ void group_fq12_mul_to(uint32_t* dst, const uint32_t* a,
+                                                         const uint32_t* b, int s) {
+  uint32_t r0[PACKED];
+  pack_digits(group_mul_part(a, b, s, 0), r0);
+  group_write_slot(dst, s, r0, group_mul_part(a, b, s, 1));
 }
 
 // f <- f^2, dense (fq12_sq), for any f.

@@ -53,7 +53,7 @@ ENTRY_POINTS = {
     "pt_exp_bits": (_P, _P, _I, _P, _I, _P),
     "pt_affine_export": (_P, _I, _P, _I, _P, _I, _P),
     "pt_pow_ladder": (_P, _P, _P, _I, _P, _I, _P),
-    "pt_pow_ladder_w4": (_P, _P, _I, _P, _P, _I, _P),
+    "pt_pow_ladder_w4": (_P, _P, _I, _P, _I, _P, _I, _P),
     "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P),
 }
 
@@ -142,7 +142,8 @@ def load() -> tuple:
     lib.pt_error_string.argtypes = [ctypes.c_int]
     lib.pt_error_string.restype = ctypes.c_char_p
     for name in ("pt_trajectory_shared_bytes", "pt_exp_bits_shared_bytes",
-                 "pt_fq12_inv_shared_bytes"):
+                 "pt_fq12_inv_shared_bytes", "pt_pow_ladder_shared_bytes",
+                 "pt_pow_ladder_w4_shared_bytes"):
         fn = getattr(lib, name)  # dynamic shared bytes a block asks for at launch
         fn.argtypes = []
         fn.restype = ctypes.c_int

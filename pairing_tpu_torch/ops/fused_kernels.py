@@ -8,9 +8,10 @@ Counterparts of ``pairing_tpu/ops/fused_kernels.py``'s ``miller_f_pallas``
 ``exp_bits_ladder_pallas`` (K12), ``hard_chain_pallas`` (K15),
 ``pow_ladder_pallas`` (K16, plain NAF) and ``pow_ladder_w4_pallas`` (K17, w4
 NAF with the table built in the kernel). Each kernel loops over its steps
-inside one launch and keeps the Fq12 accumulator on the chip: in the thread,
-or for C, D and K12 in shared memory, split over six threads per lane; the
-plain versions below run the same schedule with the field library.
+inside one launch and keeps the Fq12 accumulator on the chip: in the thread
+(K15), or for C, D, K12, K16 and K17 in shared memory, split over six threads
+per lane; the plain versions below run the same schedule with the field
+library.
 """
 
 from __future__ import annotations
@@ -238,8 +239,9 @@ def exp_bits_ladder_plain(x: torch.Tensor, bits) -> torch.Tensor:
 
 @lru_cache(maxsize=None)
 def bits_table(bits: tuple, device: torch.device) -> torch.Tensor:
-    """Kernel K12's bits, int32 [len(bits)] on ``device``: built once per
-    (bits, device), so a launch copies nothing from the host."""
+    """Kernel K12's bits, or kernel K16's or K17's digits, int32
+    [len(bits)] on ``device``: built once per (bits, device), so a launch
+    copies nothing from the host."""
     return torch.as_tensor(np.asarray(bits, np.int32), device=device)
 
 
@@ -295,13 +297,17 @@ def pow_ladder(m: torch.Tensor, mc: torch.Tensor, digits) -> torch.Tensor:
     dispatch.check_operand(m, "m", (12,), lanes)
     dispatch.check_operand(mc, "mc", (12,), lanes)
     out = torch.empty_like(m)
-    POW_LADDER(m, mc, torch.as_tensor(digits, device=m.device), len(digits), out, lanes)
+    POW_LADDER(m, mc, bits_table(tuple(digits.tolist()), m.device), len(digits), out, lanes)
     return out
 
 
 # ---------------------------------------------------------------------------
 # Kernel K17: w4 ladder with the table built in the kernel
 # ---------------------------------------------------------------------------
+
+#: Lanes per block of kernel K17 (``csrc/pow_w4.cu``'s K17_LANES): its
+#: scratch table spans whole blocks, a column for every lane's group.
+K17_BLOCK_LANES = 20
 
 
 def _check_w4_digits(digits) -> np.ndarray:
@@ -345,9 +351,11 @@ def pow_ladder_w4(m: torch.Tensor, digits=BN_X_W4_DIGITS) -> torch.Tensor:
         return pow_ladder_w4_plain(m, digits)
     lanes = m.shape[-1]
     dispatch.check_operand(m, "m", (12,), lanes)
-    tab = torch.empty((4,) + tuple(m.shape), dtype=torch.int32, device=m.device)
+    cols = -(-lanes // K17_BLOCK_LANES) * K17_BLOCK_LANES
+    tab = torch.empty((3, 12, F.NLIMBS, cols), dtype=torch.int32, device=m.device)
     out = torch.empty_like(m)
-    POW_LADDER_W4(m, torch.as_tensor(digits, device=m.device), len(digits), tab, out, lanes)
+    POW_LADDER_W4(m, bits_table(tuple(digits.tolist()), m.device), len(digits), tab, cols, out,
+                  lanes)
     return out
 
 

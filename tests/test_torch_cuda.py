@@ -575,7 +575,9 @@ def test_fq12_mul_sparse_every_mask_matches_plain(gen, mask):
     assert_same(got, FK.fq12_mul_sparse_plain(a, present, b))
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
+#: Kernels K16 and K17 run kernel D's blocks of 20 lanes (five-lane warps):
+#: 33 and 16389 cut a warp and a block at the edge.
+@pytest.mark.parametrize("lanes", [33, 1024, 16389])
 def test_pow_ladders_k16_k17_match_plain_and_d(gen, lanes):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.ops import klayout as KL
@@ -583,11 +585,59 @@ def test_pow_ladders_k16_k17_match_plain_and_d(gen, lanes):
 
     m = easy_part_k(rand_kf12((12,), lanes, gen))
     mc = KL.kconj(m)
+    before = (FU.POW_LADDER.launches, FU.POW_LADDER_W4.launches)
     naf = FU.pow_ladder(m, mc, FU.BN_X_LADDER_DIGITS)
+    assert FU.POW_LADDER.launches == before[0] + 1
     w4 = FU.pow_ladder_w4(m, FU.BN_X_W4_DIGITS)
+    assert FU.POW_LADDER_W4.launches == before[1] + 1
     assert_same(naf, FU.pow_ladder_plain(m, mc, FU.BN_X_LADDER_DIGITS))
     assert_same(w4, FU.pow_ladder_w4_plain(m, FU.BN_X_W4_DIGITS))
     assert_same((naf, w4), (FU.pow_x_streamed(m),) * 2)  # three designs, one value
+
+
+@pytest.mark.parametrize("ladder, digits", [
+    ("naf", [0, -1, 1, 0, -1]), ("w4", [3, 0, -5, 0, 7, -1, 0, 1]),
+    ("w4", [7, -7, 0, -3, 5, 0, -1, 3]),
+])
+@pytest.mark.parametrize("lanes", [1, 33, 16389])
+def test_pow_ladders_short_negative_digits_match_oracle(gen, lanes, ladder, digits):
+    """K16 and K17 over short digit vectors with negative digits (the CPU
+    tests' vectors, and one with every row of K17's table conjugated), on
+    four distinct easy-part outputs tiled over the lanes: each call one
+    launch, equal to the plain version and, on the distinct lanes, to the
+    oracle; every tiled lane equal to its original."""
+    from pairing_tpu_torch.fields import fp12 as TF12
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.ops import klayout as KL
+    from pairing_tpu_torch.utils import bn254 as c
+
+    rng = np.random.default_rng(306)
+    xs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+          for _ in range(4)]
+    base, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(xs, "cuda"))
+    idx = torch.arange(lanes, device="cuda") % len(xs)
+    m = base[..., idx].contiguous()
+    e = 1 if ladder == "naf" else 0
+    for d in digits:
+        e = 2 * e + d
+    if ladder == "naf":
+        mc = KL.kconj(m)
+        kernel, before = FU.POW_LADDER, FU.POW_LADDER.launches
+        got = FU.pow_ladder(m, mc, digits)
+        want = FU.pow_ladder_plain(m, mc, digits)
+    else:
+        kernel, before = FU.POW_LADDER_W4, FU.POW_LADDER_W4.launches
+        got = FU.pow_ladder_w4(m, digits)
+        want = FU.pow_ladder_w4_plain(m, digits)
+    assert kernel.launches == before + 1
+    assert_same(got, want)
+    canon = FK.kf12_canonical(got)
+    k = min(lanes, len(xs))
+    assert torch.equal(canon, canon[..., :k][..., idx])
+    ints = TF12.fq12_to_int_coeffs(FK.from_kernel_layout(got[..., :k].contiguous(), (k,)))
+    assert ints == [o.pow_fq12(x, e) for x in xs[:k]]
 
 
 @pytest.mark.parametrize("lanes", [33, 1024])

@@ -16,12 +16,15 @@
   (K17) over short digit vectors with negative digits, against the oracle;
   their digit checks; the ladder digits and the hard-chain program (K15)
   against the JAX package's constants.
-* The six-thread split of kernels C, D and K12 (``csrc/field_group.cuh``),
-  modelled below: each rank's products and reductions apart, assembled as
-  the kernel does, against ``fq12_mul`` / ``fq12_sq`` / ``fq12_mul_sparse``
+* The six-thread split of kernels C, D, K12, K16 and K17
+  (``csrc/field_group.cuh``), modelled below: each rank's products and
+  reductions apart, assembled as the kernel does, against ``fq12_mul`` / ``fq12_sq`` / ``fq12_mul_sparse``
   / ``fq12_cyclotomic_sq`` and the oracle; K12's steps on that model, row
-  by row, limb for limb against its plain version. K12's device bits are
-  built once per (bits, device).
+  by row, limb for limb against its plain version; K16's and K17's
+  schedules on that model (K17's table built by the split square and
+  product, the conjugated row as odd-rank negation) limb for limb against
+  their plain versions. K12's device bits, and K16's and K17's digits, are
+  built once per (bits, device); K17's scratch spans whole blocks.
 Exact (canonical) comparison; every output in the kernel envelope.
 """
 
@@ -470,6 +473,88 @@ def test_exp_bits_table_built_once():
     assert table.dtype == torch.int32 and table.tolist() == list(bits)
     assert FU.bits_table(bits, cpu) is table
     assert FU.bits_table((1, 0, 1), cpu) is not table
+
+
+def _conj_by_ranks(a: Fq12) -> Fq12:
+    """The conjugate as kernel K17 stages it: ranks 1, 3 and 5 negate their
+    slot on load, ranks 0, 2 and 4 copy theirs."""
+    return Fq12(tuple(TF2.cap(TF2.neg(x)) if s & 1 else x for s, x in enumerate(a.s)))
+
+
+@pytest.mark.parametrize("ladder, digits", [
+    ("naf", [0, -1, 1, 0, -1]), ("naf", [-1, 0, 0, 1, 1, 0, -1]),
+    ("w4", [3, 0, -5, 0, 7, -1, 0, 1]), ("w4", [7, -7, 0, -3, 5, 0, -1, 3]),
+])
+def test_pow_ladder_steps_by_ranks_match_plain(ladder, digits):
+    """Kernels K16 and K17's schedules on the six-rank model, limb for limb
+    against ``pow_ladder_plain`` / ``pow_ladder_w4_plain`` on three
+    easy-part outputs, and against the oracle. K16: f starts at m; per digit
+    a split cyclotomic square and, on d = +1 or -1, a split dense product by
+    the row m or mc. K17: m2 = m^2 by the split cyclotomic square, rows m^3,
+    m^5, m^7 as m2 times the row before (rank s writes slot s of each), f
+    starts at the top digit's entry with no square; per later digit a split
+    square and, on a nonzero one, a split product by row |d| >> 1, its odd
+    slots negated by their ranks for d < 0."""
+    rng = np.random.default_rng(310)
+    xs = [o.easy_part([int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)])
+          for _ in range(3)]
+    m, _ = FK.to_kernel_layout(TF12.fq12_from_int_coeffs(xs, "cpu"))
+    mv = FK.kf12_view(m)
+    if ladder == "naf":
+        mc = KL.kconj(m)
+        rows = {1: mv, -1: FK.kf12_view(mc)}
+        f, e = mv, _digits_value(digits, 1)
+        for d in digits:
+            f = cyc_sq_by_ranks(f)
+            if d:
+                f = fq12_mul_by_ranks(f, rows[d])
+        want = FU.pow_ladder_plain(m, mc, digits)
+    else:
+        m2 = cyc_sq_by_ranks(mv)
+        rows = [mv]
+        for _ in range(3):
+            rows.append(fq12_mul_by_ranks(m2, rows[-1]))
+
+        def entry(d):
+            row = rows[abs(d) >> 1]
+            return _conj_by_ranks(row) if d < 0 else row
+
+        f, e = entry(digits[0]), _digits_value(digits)
+        for d in digits[1:]:
+            f = cyc_sq_by_ranks(f)
+            if d:
+                f = fq12_mul_by_ranks(f, entry(d))
+        want = FU.pow_ladder_w4_plain(m, digits)
+    got = FK.kf12_from(f)
+    assert torch.equal(got, want)
+    assert port_ints(got) == [o.pow_fq12(x, e) for x in xs]
+
+
+def test_ladder_wrappers_take_cached_digits_and_size_k17_scratch(monkeypatch):
+    """On the card path K16's and K17's digits come from ``bits_table``,
+    built once per (digits, device), and K17's scratch table spans whole
+    blocks of K17_BLOCK_LANES: the launches are recorded here in place of
+    the kernels, on CPU operands."""
+    calls = []
+    monkeypatch.setattr(FU.dispatch, "on_cuda", lambda *ts: True)
+    monkeypatch.setattr(FU, "POW_LADDER", lambda *args: calls.append(("naf", args)))
+    monkeypatch.setattr(FU, "POW_LADDER_W4", lambda *args: calls.append(("w4", args)))
+    for lanes in (3, 41):
+        m = torch.zeros((12, 21, lanes), dtype=torch.int32)
+        FU.pow_ladder(m, m, FU.BN_X_LADDER_DIGITS)
+        FU.pow_ladder_w4(m, FU.BN_X_W4_DIGITS)
+    cpu = torch.device("cpu")
+    naf_table = FU.bits_table(tuple(FU.BN_X_LADDER_DIGITS.tolist()), cpu)
+    w4_table = FU.bits_table(tuple(FU.BN_X_W4_DIGITS.tolist()), cpu)
+    assert naf_table.tolist() == FU.BN_X_LADDER_DIGITS.tolist() and naf_table.min() == -1
+    assert w4_table.tolist() == FU.BN_X_W4_DIGITS.tolist() and w4_table.min() == -7
+    assert [kind for kind, _ in calls] == ["naf", "w4"] * 2
+    for (_, naf), (_, w4), lanes in zip(calls[::2], calls[1::2], (3, 41)):
+        assert naf[2] is naf_table and naf[3] == len(naf_table) and naf[5] == lanes
+        digits, n_digits, tab, cols, _, n = w4[1:]
+        assert digits is w4_table and n_digits == len(w4_table) and n == lanes
+        assert cols % FU.K17_BLOCK_LANES == 0 and cols - FU.K17_BLOCK_LANES < lanes <= cols
+        assert tab.shape == (3, 12, 21, cols)
 
 
 def test_pow_ladder_stream_plain_other_digits_matches_oracle():
