@@ -50,18 +50,21 @@ toolkit (nvcc). It
 Step 2 also holds B on random inputs beside cyclotomic ones, K15, K16,
 K17, K18 and kernel A's sparse mode (both line shapes) against their plain
 versions, and runs K16, K17 and D on the same m:
-the three ladder designs for m^BN_X side by side. The entries of the
-redesigned kernels, A, B and E (A in both modes; one thread per output
-component and lane), C (all three modes), D, K12, K16 and K17 (six threads
-a lane), F (one thread a lane, G's window chain), G (three launches: the
-tower to the norm and back one thread per output component, the Fermat
-chain one thread per lane), H (two), I (two), J (four), K (one thread per
-line and lane) and K13 (one thread per state and lane), in the JSON line
-also carry their registers, stack, spill and shared bytes per block from
-this build's ptxas report (G's second and third kernels under
-``ptxas_more``; the shared memory of G, H, K12, K16 and K17 is dynamic, so
-the report shows none; their entries give the bytes they ask for at
-launch). The entries of I, J and F also
+the three ladder designs for m^BN_X side by side, and K15 beside the 29
+launches of A, B and E it replaces (launched call by call and replayed
+from a CUDA graph). The entries of the redesigned kernels, A, B, E, K18
+and K15 (A in both modes; one thread per output component and lane), C
+(all three modes), D, K12, K16 and K17 (six threads a lane), F (one thread
+a lane, G's window chain), G (three launches: the tower to the norm and
+back one thread per output component, the Fermat chain one thread per
+lane), H (two), I (two), J (four), K (one thread per line and lane) and
+K13 (one thread per state and lane), in the JSON line also carry their
+registers, stack, spill and shared bytes per block from this build's
+ptxas report and their SASS instruction count (``cuobjdump -sass``; G's
+second and third kernels under ``ptxas_more``; the shared memory of G, H,
+K12, K15, K16 and K17 is dynamic, so the report shows none; their entries
+give the bytes they ask for at launch). ``fq12_pow``'s lines give its
+device time and its K18 launches. The entries of I, J and F also
 carry their times at the K = 4 path's 65,536 lanes; E's carries each
 program's device time (replayed from a CUDA graph: launched call by call
 E would be timed at the host's pace, kept as ``ms_eager``) and bound
@@ -337,23 +340,37 @@ def ptxas_entry(log: str, kernel: str) -> dict:
             "spill_load_bytes": loads, "shared_bytes_per_block": int(smem.group(1)) if smem else 0}
 
 
+#: SASS instructions per kernel of the library (``cuobjdump -sass``), by
+#: mangled name; filled by ``library_sass``.
+SASS: dict = {}
+
+
+def library_sass(lib_path) -> None:
+    """Count each kernel's SASS instructions in the built library."""
+    from pairing_tpu_torch.ops import build
+
+    SASS.update({name: build.sass_count(text) for name, text in build.sass(lib_path).items()})
+
+
 def add_ptxas(entry: dict, log: str, kernel: str, dynamic_shared: int = 0, *more) -> None:
     """The entry of a redesigned kernel gains its ptxas registers, stack,
     spills and shared bytes per block:
     the static bytes of the report plus ``dynamic_shared``, the bytes it
-    asks for at launch. A kernel of several launches (G) names the others
-    in ``more`` as (kernel, dynamic_shared); each gets its own entry under
-    ``ptxas_more``."""
+    asks for at launch, and its SASS instruction count. A kernel of several
+    launches (G) names the others in ``more`` as (kernel, dynamic_shared);
+    each gets its own entry under ``ptxas_more``."""
     for i, (name, dyn) in enumerate(((kernel, dynamic_shared),) + more):
         props = ptxas_entry(log, name)
         props["shared_bytes_per_block"] += dyn
+        props["sass"] = next((v for k, v in SASS.items() if re.search(r"\d%sE" % name, k)), None)
         if i == 0:
             entry.update(props)
         else:
             entry.setdefault("ptxas_more", {})[name] = props
         print(f"{entry['name']}: {props['registers']} registers, {props['stack_bytes']} B stack, "
               f"spill stores {props['spill_store_bytes']} B, loads {props['spill_load_bytes']} B, "
-              f"{props['shared_bytes_per_block']} B shared per block (ptxas, {name})", flush=True)
+              f"{props['shared_bytes_per_block']} B shared per block (ptxas, {name}); "
+              f"{props['sass']} SASS", flush=True)
 
 
 def slot_imads(power) -> int:
@@ -580,6 +597,7 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     # this slice's kernels: K18, kernel A's sparse mode, K16, K17, K15
     compare_kernel("fq12_sq", lambda: FK.fq12_sq(a), lambda: FK.fq12_sq_plain(a), results, bound,
                    B * FQ12_SQ, nbytes((a,)))
+    add_ptxas(results["fq12_sq"], ptxas_log, "k_fq12_sq")
 
     lines = [rand(12) for _ in LINE_SHAPES]  # only the present slots are read
     compare_kernel("fq12_mul_sparse",
@@ -623,12 +641,19 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
                    lambda: FU.hard_chain_plain(*chain_in), results, bound,
                    B * (HARD_CHAIN_PRODUCTS * FQ12_DENSE + HARD_CHAIN_SQUARES * CYC_SQ
                         + n_const * FP2_MUL), nbytes(chain_in))
+    add_ptxas(results["hard_chain"], ptxas_log, "k_hard_chain", lib.pt_hard_chain_shared_bytes())
     unfused = FE.hard_part_chain_k(*chain_in, fused=False)
     check(torch.equal(kf12_canonical(FU.hard_chain(*chain_in)), kf12_canonical(unfused)),
           "hard_chain differs from the unfused chain")
-    chain_ms = timed_ms(lambda: FE.hard_part_chain_k(*chain_in, fused=False), KERNEL_REPS)
-    print(f"hard-part chain ({B} lanes, equal): 29 launches of A, B, E {chain_ms:.3f} ms, "
-          f"K15 in one launch {results['hard_chain']['ms']:.3f} ms", flush=True)
+    chain = lambda: FE.hard_part_chain_k(*chain_in, fused=False)  # noqa: E731
+    chain_ms, chain_graph_ms = timed_ms(chain, KERNEL_REPS), graph_ms(chain, KERNEL_REPS)
+    k15_ms = results["hard_chain"]["ms"]
+    results["hard_chain"]["launches29_ms"] = chain_ms
+    results["hard_chain"]["launches29_graph_ms"] = chain_graph_ms
+    print(f"hard-part chain ({B} lanes, equal): 29 launches of A, B, E {chain_ms:.3f} ms "
+          f"launched call by call, {chain_graph_ms:.3f} ms replayed from a CUDA graph; K15 in "
+          f"one launch {k15_ms:.3f} ms, {k15_ms / chain_ms:.3f} x and "
+          f"{k15_ms / chain_graph_ms:.3f} x theirs", flush=True)
 
 
 def seeded_pairs():
@@ -875,7 +900,8 @@ def fq12_pow_path(results, card: str):
         sec = time.perf_counter() - t0
         print(f"{name}: e = {e:#x}, {BATCH} lanes ({UNIQUE} distinct) equal the oracle; "
               f"{sec:.4f} s per batch = {BATCH / sec:.1f} powers/s on {card} (first call "
-              f"{seconds:.3f} s)", flush=True)
+              f"{seconds:.3f} s); K18 launches {results['fq12_sq']['launches_by_path'][name]}, "
+              f"device {timed_ms(lambda: fq12_pow(a, e), 3):.3f} ms per call", flush=True)
 
 
 def klayout_path(results):
@@ -985,6 +1011,7 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
 
+    library_sass(info.path)
     results: dict = {}
     kernel_phases(results, Bounds(), info.ptxas)
     torch.cuda.empty_cache()

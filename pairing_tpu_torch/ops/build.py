@@ -22,6 +22,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -54,7 +55,7 @@ ENTRY_POINTS = {
     "pt_affine_export": (_P, _I, _P, _I, _P, _I, _P),
     "pt_pow_ladder": (_P, _P, _P, _I, _P, _I, _P),
     "pt_pow_ladder_w4": (_P, _P, _I, _P, _I, _P, _I, _P),
-    "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P),
+    "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P),
 }
 
 
@@ -129,6 +130,19 @@ def build() -> BuildInfo:
     return BuildInfo(lib_path, seconds, log)
 
 
+def sass(path) -> dict:
+    """SASS text per function in ``cuobjdump -sass`` of an object or library."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    return {part.split("\n", 1)[0].strip(): part for part in out.split("Function : ")[1:]}
+
+
+def sass_count(text: str) -> int:
+    """Instructions in one function's SASS text."""
+    return len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", text, re.M))
+
+
 @lru_cache(maxsize=None)
 def load() -> tuple:
     """Build if needed, load the library, declare its entry points.
@@ -143,7 +157,7 @@ def load() -> tuple:
     lib.pt_error_string.restype = ctypes.c_char_p
     for name in ("pt_trajectory_shared_bytes", "pt_exp_bits_shared_bytes",
                  "pt_fq12_inv_shared_bytes", "pt_pow_ladder_shared_bytes",
-                 "pt_pow_ladder_w4_shared_bytes"):
+                 "pt_pow_ladder_w4_shared_bytes", "pt_hard_chain_shared_bytes"):
         fn = getattr(lib, name)  # dynamic shared bytes a block asks for at launch
         fn.argtypes = []
         fn.restype = ctypes.c_int

@@ -406,13 +406,15 @@ HARD_CHAIN_OUT = 5
 SLOT_POWERS = (None, 1, 2, 3)
 
 
-def hard_chain_plain(m, mx, mx2, mx3) -> torch.Tensor:
-    """Plain PyTorch version of kernel K15: HARD_CHAIN_PROG interpreted on a
-    register file [HARD_CHAIN_NREG, 12, NLIMBS, B] with the field library."""
+def hard_chain_plain(m, mx, mx2, mx3, prog=HARD_CHAIN_PROG,
+                     out_reg: int = HARD_CHAIN_OUT) -> torch.Tensor:
+    """Plain PyTorch version of kernel K15: ``prog`` (HARD_CHAIN_PROG)
+    interpreted on a register file [HARD_CHAIN_NREG, 12, NLIMBS, B] with
+    the field library; register ``out_reg``."""
     regs = torch.zeros((HARD_CHAIN_NREG,) + tuple(m.shape), dtype=torch.int32, device=m.device)
     for r, x in enumerate((m, mx, mx2, mx3)):
         regs[r] = x
-    for op, dst, a, b in HARD_CHAIN_PROG:
+    for op, dst, a, b in prog:
         x = kf12_view(regs[a])
         if op == OPC_MUL:
             y = F12.fq12_mul(x, kf12_view(regs[b]))
@@ -423,15 +425,46 @@ def hard_chain_plain(m, mx, mx2, mx3) -> torch.Tensor:
         else:
             y = F12.frobenius_map(x, SLOT_POWERS[op - OPC_CONJ])
         regs[dst] = kf12_from(y)
-    return regs[HARD_CHAIN_OUT].clone()
+    return regs[out_reg].clone()
+
+
+#: Registers 0-2 (m, mx, mx2) the kernel reads in place from its inputs; it
+#: keeps registers 3-7 in shared memory. At most this many operations.
+CHAIN_INPUT_REGS, CHAIN_MAX_OPS = 3, 64
+
+
+def check_chain_program(prog, out_reg: int = HARD_CHAIN_OUT) -> None:
+    """Kernel K15's checks of a register program, as its C entry makes them
+    (``csrc/hard_chain.cu``): rows (op, dst, a, b) with an opcode of 0-5,
+    registers 0-7, no write to the inputs' registers 0-2 and no cyclotomic
+    square of one of them (CYC reads shared rows only), at most
+    CHAIN_MAX_OPS rows. A destination may be one of the operation's sources:
+    the kernel stores an operation's components only after every thread
+    has read its operands. Raises ValueError."""
+    rows = [tuple(int(v) for v in row) for row in prog]
+    if len(rows) > CHAIN_MAX_OPS or not 0 <= out_reg < HARD_CHAIN_NREG:
+        raise ValueError(f"chain program: {len(rows)} operations (at most {CHAIN_MAX_OPS}), "
+                         f"result register {out_reg}")
+    for t, row in enumerate(rows):
+        op, dst, a, b = row  # ValueError unless (op, dst, a, b)
+        if not OPC_MUL <= op <= OPC_F3 or not all(0 <= r < HARD_CHAIN_NREG for r in (dst, a, b)):
+            raise ValueError(f"chain program row {t}: {row}: opcode or register out of range")
+        if dst < CHAIN_INPUT_REGS:
+            raise ValueError(f"chain program row {t}: {row} writes input register {dst}")
+        if op == OPC_CYC and a < CHAIN_INPUT_REGS:
+            raise ValueError(f"chain program row {t}: {row} squares input register {a}")
 
 
 @lru_cache(maxsize=None)
-def _hard_chain_consts(device: torch.device):
-    prog = torch.as_tensor(np.asarray(HARD_CHAIN_PROG, np.int32), device=device)
+def _hard_chain_consts():
+    """The program and its four slot programs as host tensors: the C entry
+    checks the program and folds the slot programs into the launch's
+    parameter."""
+    check_chain_program(HARD_CHAIN_PROG)
+    prog = torch.as_tensor(np.asarray(HARD_CHAIN_PROG, np.int32))
     progs = [KL._slot_prog(pw) for pw in SLOT_POWERS]
-    ops = torch.as_tensor(np.stack([p[0] for p in progs]), device=device)
-    consts = torch.as_tensor(np.stack([p[1] for p in progs]), device=device)
+    ops = torch.as_tensor(np.stack([p[0] for p in progs]))
+    consts = torch.as_tensor(np.stack([p[1] for p in progs]))
     return prog, ops, consts
 
 
@@ -445,9 +478,8 @@ def hard_chain(m, mx, mx2, mx3) -> torch.Tensor:
     lanes = m.shape[-1]
     for name, x in (("m", m), ("mx", mx), ("mx2", mx2), ("mx3", mx3)):
         dispatch.check_operand(x, name, (12,), lanes)
-    prog, ops, consts = _hard_chain_consts(m.device)
-    regs = torch.empty((HARD_CHAIN_NREG,) + tuple(m.shape), dtype=torch.int32, device=m.device)
+    prog, ops, consts = _hard_chain_consts()
     out = torch.empty_like(m)
-    HARD_CHAIN(m, mx, mx2, mx3, prog, len(HARD_CHAIN_PROG), ops, consts, regs, HARD_CHAIN_OUT,
-               out, lanes)
+    HARD_CHAIN(m, mx, mx2, mx3, prog, len(HARD_CHAIN_PROG), ops, consts, HARD_CHAIN_OUT, out,
+               lanes)
     return out

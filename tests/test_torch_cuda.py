@@ -539,7 +539,8 @@ def test_kernel_wrapper_rejects_bad_operands(gen):
         FK.fq12_mul(a, a.cpu())
 
 
-@pytest.mark.parametrize("lanes", [1, 129, 2048])
+#: K18 runs kernel B's blocks of 32 lanes; 16389 cuts one at the edge.
+@pytest.mark.parametrize("lanes", [1, 129, 2048, 16389])
 def test_fq12_sq_kernel_matches_plain(gen, lanes):
     from pairing_tpu_torch.ops import fq12_kernels as FK
 
@@ -640,7 +641,9 @@ def test_pow_ladders_short_negative_digits_match_oracle(gen, lanes, ladder, digi
     assert ints == [o.pow_fq12(x, e) for x in xs[:k]]
 
 
-@pytest.mark.parametrize("lanes", [33, 1024])
+#: K15 runs blocks of 32 lanes, each through the whole program with a
+#: barrier after every operation; 33 and 16389 cut one at the edge.
+@pytest.mark.parametrize("lanes", [33, 1024, 16389])
 def test_hard_chain_kernel_matches_plain_and_unfused(gen, lanes):
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing.final_exp import easy_part_k, hard_part_chain_k
@@ -651,6 +654,35 @@ def test_hard_chain_kernel_matches_plain_and_unfused(gen, lanes):
     assert FU.HARD_CHAIN.launches == before + 1
     assert_same(got, FU.hard_chain_plain(*xs))
     assert_same(got, hard_part_chain_k(*xs, fused=False))
+
+
+def test_hard_chain_entry_runs_in_place_programs_and_refuses_bad_ones(gen):
+    """K15's C entry on programs other than the chain's: one whose every
+    kind of operation writes a register it reads (the kernel's second
+    barrier) equals the plain interpreter; programs that
+    ``check_chain_program`` refuses are refused by the entry too."""
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.pairing.final_exp import easy_part_k
+    from test_torch_sq_chain_kernels import IN_PLACE_PROG
+
+    lanes = 45
+    xs = [easy_part_k(rand_kf12((12,), lanes, gen)) for _ in range(4)]
+    _, ops, consts = FU._hard_chain_consts()
+
+    def launch(prog, out_reg):
+        host = torch.as_tensor(np.asarray(prog, np.int32).reshape(-1, 4))
+        out = torch.empty_like(xs[0])
+        FU.HARD_CHAIN(*xs, host, len(prog), ops, consts, out_reg, out, lanes)
+        return out
+
+    assert_same(launch(IN_PLACE_PROG, 7),
+                FU.hard_chain_plain(*xs, prog=IN_PLACE_PROG, out_reg=7))
+    for bad in (((FU.OPC_MUL, 2, 3, 4),), ((FU.OPC_CYC, 4, 1, 0),), ((6, 4, 3, 0),),
+                ((FU.OPC_MUL, 8, 3, 3),)):
+        with pytest.raises(ValueError):
+            FU.check_chain_program(bad)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            launch(bad, 5)
 
 
 def test_fused_chain_pairing_and_split_final_exp_on_card(gen, monkeypatch):

@@ -2,9 +2,10 @@
 against the field library and the oracle.
 
 One thread per output component k = 2i + comp: the Fq2 terms of slot i's
-sum T_i, read with their flags from the source's ``B_TERMS`` / ``B_SLOTS``,
-summed into 32-bit columns (a square term's x0^2 with ``w32_sq``), a
-carry-save fold between terms, one reduction, then the linear tail 3T - 2s
+sum T_i, read with their flags from ``B_TERMS`` / ``B_SLOTS`` in
+``csrc/fq12_terms.cuh`` (shared with K18 and K15), summed into 32-bit
+columns (a square term's x0^2 with ``w32_sq``), a carry-save fold between
+terms, one reduction, then the linear tail 3T - 2s
 (slots 0, 2, 4) or 3T + 2s (slots 1, 3, 5). The model must give
 ``fields.fp12.fq12_cyclotomic_sq`` (the kernel's plain version) value for
 value on random and on cyclotomic inputs, and on cyclotomic ones the
@@ -33,20 +34,23 @@ torch.set_num_threads(2)
 ALL_MAX = np.uint64((1 << 13) - 1)
 
 
-def b_tables():
-    """B_TERMS and B_SLOTS of cyc_sq.cu, with its flag names evaluated."""
-    src = (CSRC / "cyc_sq.cu").read_text()
+def b_tables(source: str = "fq12_terms.cuh", terms: str = "B_TERMS", slots: str = "B_SLOTS"):
+    """A term table and its slots (kernel B's B_TERMS and B_SLOTS in
+    fq12_terms.cuh by default), with the flag names of fq12_terms.cuh
+    evaluated."""
     names = {}
-    for item in re.search(r"enum : uint8_t \{([^}]*)\}", src).group(1).split(","):
+    flags = (CSRC / "fq12_terms.cuh").read_text()
+    for item in re.search(r"enum : uint8_t \{([^}]*)\}", flags).group(1).split(","):
         key, val = (t.strip() for t in item.split("="))
         names[key] = int(val)
+    src = (CSRC / source).read_text()
 
     def entries(name):
         body = re.search(name + r"\[[^\]]*\] = \{(.*?)\};", src, re.S).group(1)
         body = re.sub(r"//[^\n]*", "", body).replace("{", "(").replace("}", ",)")
         return eval("[" + body + "]", {}, names)
 
-    return entries("B_TERMS"), entries("B_SLOTS"), names
+    return entries(terms), entries(slots), names
 
 
 def flagged(x0, x1, flags, names):
@@ -82,20 +86,21 @@ def term_products(rows, t, comp, names, worst: bool):
     return [(x0, y0), (x1, y1)]
 
 
-def model_cyc_sq(rows, worst: bool = False):
-    """Kernel B on carried digits rows[12] of [B, NL]: the 12 output digit
-    arrays, and per component the integer sum its thread reduces."""
-    terms, slots, names = b_tables()
-    out, sums = [], []
+def model_terms(rows, tables, worst: bool = False) -> list:
+    """The threads of a term table (b_tables' triple) on carried digits
+    rows[12] of [B, NL]: per component k = 2s + comp, slot s's terms summed
+    into 32-bit columns with a fold between terms, then one reduction; the
+    reduced digits and the integer sum the thread reduced."""
+    terms, slots, names = tables
+    res = []
     for k in range(12):
-        i, comp = k >> 1, k & 1
-        first, count = slots[i]
+        first, count = slots[k >> 1]
         w = np.zeros((rows[0].shape[0], 2 * NL), np.uint64)
         total = [0] * rows[0].shape[0]
         for j in range(count):
             if j:
                 w32_fold(w)
-            for x, y in term_products(rows, terms[first + j], comp, names, worst):
+            for x, y in term_products(rows, terms[first + j], k & 1, names, worst):
                 if y is None:
                     w += w32_sq(x)
                     assert (w < np.uint64(1 << 32)).all()
@@ -103,9 +108,18 @@ def model_cyc_sq(rows, worst: bool = False):
                 else:
                     w32_mac(w, x, y)
                     total = [t + u * v for t, u, v in zip(total, value(x), value(y))]
-        r = w32_reduce(w, m_max=worst)
+        res.append((w32_reduce(w, m_max=worst), total))
+    return res
+
+
+def model_cyc_sq(rows, worst: bool = False):
+    """Kernel B on carried digits rows[12] of [B, NL]: the 12 output digit
+    arrays, and per component the integer sum its thread reduces."""
+    out, sums = [], []
+    for k, (r, total) in enumerate(model_terms(rows, b_tables(), worst)):
         if worst:
             continue
+        i = k >> 1
         assert all(v < 2 * c.P for v in value(r))
         t3 = [3 * v for v in value(r)]  # small<3>: less 4p, then less 2p, where they fit
         t3 = [v - 4 * c.P if v >= 4 * c.P else v for v in t3]

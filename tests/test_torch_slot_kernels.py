@@ -51,8 +51,9 @@ RINV = pow(R_MONT, -1, c.P)
 
 
 def e_source():
-    """E_TERMS [c][j] = (g, neg) and the mode flags of slotwise.cu."""
-    src = (CSRC / "slotwise.cu").read_text()
+    """E_TERMS [c][j] = (g, neg) and the mode flags of slot_table.cuh (kernel
+    E's table and its folding, shared with K15)."""
+    src = (CSRC / "slot_table.cuh").read_text()
     flags = {}
     for item in re.search(r"enum : uint32_t \{([^}]*)\}", src).group(1).split(","):
         key, val = (t.strip() for t in item.split("="))

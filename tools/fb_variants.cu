@@ -21,14 +21,15 @@
 // * pt_fq12_cyc_sq: the committed kernel, the block's 12 input rows staged
 //   once in shared memory.
 // * k_b_l1: the same threads with every operand read from device memory
-//   through L1 and carried at each use, as kernel A reads (a copy of
-//   cyc_sq.cu's term loop on another row source); a lane past the batch
-//   edge returns.
+//   through L1 and carried at each use, as kernel A reads (l1_term.cuh:
+//   the term loop on another row source); a lane past the batch edge
+//   returns.
 //
 // k_imad_rate: IMAD_CHAINS independent chains of 32-bit multiply-adds a
 // thread (mad.lo.u32), for the card's IMAD rate per SM and clock.
 #include "fp_pow.cu"
 #include "cyc_sq.cu"
+#include "l1_term.cuh"
 
 namespace pt {
 
@@ -91,53 +92,7 @@ k_b_old(const int32_t* __restrict__ a, int32_t* __restrict__ out, int lanes) {
   store_fq12(z, out + lane, n);
 }
 
-// cyc_sq.cu's mac_cyc_term and cyc_component with component ``row`` of
-// this lane read from device memory (``a``: component 0 of this lane) and
-// carried at each use.
-static __device__ __forceinline__ void l1_term(Wide32& w, const int32_t* a, size_t n, BTerm t,
-                                               int comp) {
-  Fp x0, x1;
-  load_fp(x0, a + 2 * t.x * NL * n, n);
-  load_fp(x1, a + (2 * t.x + 1) * NL * n, n);
-  if (t.flags & B_SQ) {
-    if (comp == 0) {
-      w32_sq_mac(w, x0);
-      w32_mac(w, x1, fp_neg(x1));
-    } else {
-#pragma unroll
-      for (int l = 0; l < NL; ++l) x0.v[l] <<= 1;
-      fp_carry(x0);
-      w32_mac(w, x0, x1);
-    }
-    return;
-  }
-  if (t.flags & B_FOLD) {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      const uint32_t u0 = x0.v[l], u1 = x1.v[l];
-      x0.v[l] = 9 * u0 + KP[KP_2][l] - u1;
-      x1.v[l] = u0 + 9 * u1;
-    }
-    fp_carry(x0);
-    fp_carry(x1);
-  }
-  if (t.flags & B_DBL) {
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      x0.v[l] <<= 1;
-      x1.v[l] <<= 1;
-    }
-    fp_carry(x0);
-    fp_carry(x1);
-  }
-  Fp y;
-  load_fp(y, a + (2 * t.y + comp) * NL * n, n);
-  w32_mac(w, x0, y);
-  load_fp(y, a + (2 * t.y + 1 - comp) * NL * n, n);
-  if (comp == 0) y = fp_neg(y);
-  w32_mac(w, x1, y);
-}
-
+// cyc_sq.cu's cyc_component on l1_term.
 __global__ void __launch_bounds__(B_THREADS, 1)
 k_b_l1(const int32_t* __restrict__ a, int32_t* __restrict__ out, int lanes) {
   const int lane = blockIdx.x * B_LANES + threadIdx.x;

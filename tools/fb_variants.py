@@ -52,6 +52,7 @@ sys.path.insert(0, str(ROOT))
 
 from pairing_tpu_torch.fields import fp as F  # noqa: E402
 from pairing_tpu_torch.ops import build  # noqa: E402
+from pairing_tpu_torch.ops.build import sass, sass_count  # noqa: E402
 from pairing_tpu_torch.ops import fq12_kernels as FK  # noqa: E402
 from pairing_tpu_torch.ops import klayout as KL  # noqa: E402
 from pairing_tpu_torch.ops.fp_kernels import (exponent_words, fp_pow_bits,  # noqa: E402
@@ -76,18 +77,6 @@ def long_exponent(bits: int, seed: int) -> int:
     rng = np.random.default_rng(seed)
     return int.from_bytes(rng.bytes(bits // 8 + 1), "little") % (1 << (bits - 1)) | (
         1 << (bits - 1))
-
-
-def sass(path: Path) -> dict:
-    """SASS text per function in ``cuobjdump -sass`` of an object or library."""
-    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    out = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
-                         check=True).stdout
-    return {part.split("\n", 1)[0].strip(): part for part in out.split("Function : ")[1:]}
-
-
-def sass_count(text: str) -> int:
-    return len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", text, re.M))
 
 
 def build_variants():
