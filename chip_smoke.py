@@ -44,12 +44,26 @@ toolkit (nvcc). It
      e = 0b101101110101 and e = BN_X (K18, A, G), equal to the oracle; and
      the kernel-layout ops ``kmul_sparse`` (both line shapes), ``pow_ladder``
      (K16) and ``ksq`` (K18) at 16384 lanes;
-  8. prints one JSON line of per-kernel results, the card's name and power
+  8. runs ``validate_inputs`` at 16384 lanes of the main path's pairs with
+     four bad lanes at fixed positions (a Q on the twist outside G2, P =
+     (5, 5), P = (0, 0), a Q off the twist): both masks, with and without
+     the subgroup check, must equal the oracle's lane for lane, and kernel
+     H's end-only mode (``trajectory_end``) must have launched; prints the
+     call's ms, the mode's time and bound and the peak device memory;
+  9. runs ``parallel.runner.pairing_stream`` over 40,000 pairs (the main
+     path's pairs tiled) in chunks of 16384 on the card, checkpointed into
+     a temporary directory: two full chunks and a ragged tail, every lane
+     equal to the oracle's value of its pair; runs it again to resume from
+     the checkpoints (equal arrays) and once against changed inputs (it
+     must refuse); prints pairs/s (the codec's and the host's time
+     included);
+ 10. prints one JSON line of per-kernel results, the card's name and power
      limit, and last ``{"ok": true, "device": {...}}``.
 
 Step 2 also holds B on random inputs beside cyclotomic ones, K15, K16,
 K17, K18 and kernel A's sparse mode (both line shapes) against their plain
-versions, and runs K16, K17 and D on the same m:
+versions, H's end-only mode (the G2 subgroup check's 127 digits) at 16384
+lanes and at 1029, and runs K16, K17 and D on the same m:
 the three ladder designs for m^BN_X side by side, and K15 beside the 29
 launches of A, B and E it replaces (launched call by call and replayed
 from a CUDA graph). The entries of the redesigned kernels, A, B, E, K18
@@ -57,7 +71,7 @@ and K15 (A in both modes; one thread per output component and lane), C
 (all three modes), D, K12, K16 and K17 (six threads a lane), F (one thread
 a lane, G's window chain), G (three launches: the tower to the norm and
 back one thread per output component, the Fermat chain one thread per
-lane), H (two), I (two), J (four), K (one thread per line and lane) and
+lane), H (two; both modes), I (two), J (four), K (one thread per line and lane) and
 K13 (one thread per state and lane), in the JSON line also carry their
 registers, stack, spill and shared bytes per block from this build's
 ptxas report and their SASS instruction count (``cuobjdump -sass``; G's
@@ -71,7 +85,7 @@ E would be timed at the host's pace, kept as ``ms_eager``) and bound
 under ``programs`` (the conjugate and the powers 1, 2, 3), its ms and
 bound the means of theirs. K13 is also checked in the witness
 path's segment form. Every kernel's line gives its share of its bound.
-Launch counts are set to 0 just before each of the paths of steps 3-7 and
+Launch counts are set to 0 just before each of the paths of steps 3-9 and
 read just after; every kernel the path runs must have launched in it.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -136,6 +150,8 @@ KERNEL_SOURCES = {
     "pow_ladder_w4": ("pairing_tpu_torch/csrc/pow_w4.cu", "pairing_tpu/ops/fused_kernels.py:501"),
     "hard_chain": ("pairing_tpu_torch/csrc/hard_chain.cu",
                    "pairing_tpu/ops/fused_kernels.py:953"),
+    "trajectory_end": ("pairing_tpu_torch/csrc/trajectory.cu",
+                       "pairing_tpu/ops/curve_kernels.py:214"),
 }
 
 #: The kernels each path runs; each must launch in its path's run.
@@ -149,6 +165,9 @@ FUSED_KERNELS = PAIRING_KERNELS + ("hard_chain",)
 SPLIT_KERNELS = ("pow_ladder_w4", "fq12_inv", "fq12_mul", "fq12_cyc_sq", "fq12_slotwise")
 POW_KERNELS = ("fq12_sq", "fq12_mul", "fq12_inv")
 KLAYOUT_KERNELS = ("fq12_mul_sparse", "pow_ladder", "fq12_sq")
+VALIDATE_KERNELS = ("trajectory_end",)
+STREAM_PAIRS = 40000  # two full chunks of BATCH and a ragged tail
+RAGGED_LANES = 1029  # cuts kernel H's 16-lane warps and 64-lane blocks
 POW_E = 0b101101110101  # its NAF has -1 digits (tests/test_pairing.py)
 LINE_SHAPES = ((0, 3, 4), (2, 3, 5))
 
@@ -530,7 +549,28 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     compare_kernel("trajectory", lambda: CK.trajectory(q, ML.STEP_DIGITS),
                    lambda: CK.trajectory_plain(q, ML.STEP_DIGITS), results, bound,
                    B * traj_imads, nbytes((q,)))
-    add_ptxas(results["trajectory"], ptxas_log, "k_trajectory", lib.pt_trajectory_shared_bytes())
+    add_ptxas(results["trajectory"], ptxas_log, "k_trajectoryILb1E",
+              lib.pt_trajectory_shared_bytes())
+    # its end-only mode on the G2 subgroup check's digits, at 16384 lanes and
+    # at a ragged lane count
+    from pairing_tpu_torch.curves.g2 import SUBGROUP_DIGITS
+
+    n_sub = sum(1 for d in SUBGROUP_DIGITS if d)
+    end_imads = (len(SUBGROUP_DIGITS) * (5 * FP2_SQ + 2 * FP2_MUL)
+                 + n_sub * (4 * FP2_SQ + 7 * FP2_MUL))
+    compare_kernel("trajectory_end", lambda: CK.trajectory_end(q, SUBGROUP_DIGITS),
+                   lambda: CK.trajectory_end_plain(q, SUBGROUP_DIGITS), results, bound,
+                   B * end_imads, nbytes((q,)))
+    add_ptxas(results["trajectory_end"], ptxas_log, "k_trajectoryILb0E",
+              lib.pt_trajectory_shared_bytes())
+    qr = rand(4, lanes=RAGGED_LANES)
+    check(torch.equal(kf12_canonical(CK.trajectory_end(qr, SUBGROUP_DIGITS)),
+                      kf12_canonical(CK.trajectory_end_plain(qr, SUBGROUP_DIGITS))),
+          f"trajectory_end differs from its plain version at {RAGGED_LANES} lanes")
+    results["trajectory_end"]["ragged_lanes_equal"] = RAGGED_LANES
+    print(f"trajectory_end: equal to plain at {RAGGED_LANES} lanes too ({len(SUBGROUP_DIGITS)} "
+          f"digits, {n_sub} nonzero)", flush=True)
+    del qr
 
     z, tinv = rand(2 * ML.N_STEPS + 2, 2), rand(2)
     prefix, _ = NK.prefix_products(z)
@@ -939,6 +979,126 @@ def klayout_path(results):
           f"lanes equal the dense product, kmul(a, a) and pow_x_streamed", flush=True)
 
 
+def non_subgroup_point():
+    """An on-twist point outside G2 (tests/test_validate.py's search)."""
+    from pairing_tpu_torch.oracle import native as o
+
+    for x0 in range(1, 200):
+        pt = o.g2_point_from_x((x0, 1))
+        if pt is not None and not o.g2_in_subgroup(pt):
+            return pt
+    raise RuntimeError("chip_smoke: no on-twist point outside G2 found")
+
+
+def validation_path(results, card: str, g1s, g2s):
+    """``validate_inputs`` over the main path's pairs tiled to BATCH lanes,
+    with bad lanes at fixed positions, lane for lane against the oracle's
+    masks, with and without the subgroup check."""
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.utils import bn254 as c
+
+    g1 = [g1s[i % UNIQUE] for i in range(BATCH)]
+    g2 = [g2s[i % UNIQUE] for i in range(BATCH)]
+    (x0, x1), (y0, y1) = g2s[0]
+    bad = {5: "Q on the twist, outside G2", BATCH // 16: "P = (5, 5), off the curve",
+           BATCH // 2 - 1: "P = (0, 0)", BATCH - 1: "Q off the twist"}
+    g2[5] = non_subgroup_point()
+    g1[BATCH // 16] = (5, 5)
+    g1[BATCH // 2 - 1] = (0, 0)
+    g2[BATCH - 1] = ((x0, x1), ((y0 + 1) % c.P, y1))
+    sub = {}
+
+    def in_g2(q):
+        if q not in sub:
+            sub[q] = o.g2_in_subgroup(q)
+        return sub[q]
+
+    t0 = time.perf_counter()
+    on = [(y * y - x ** 3 - 3) % c.P == 0 and c._on_twist(*q) for (x, y), q in zip(g1, g2)]
+    want = {"subgroup_check": [ok and in_g2(q) for ok, q in zip(on, g2)],
+            "no_subgroup_check": on}
+    check(want["subgroup_check"].count(False) == len(bad)
+          and want["no_subgroup_check"].count(False) == len(bad) - 1,
+          "the oracle's masks do not single out the bad lanes")
+    oracle_s = time.perf_counter() - t0
+    p, q = pt.g1_from_ints(g1, DEVICE), pt.g2_from_ints(g2, DEVICE)
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    full, first_s = run_path("validate_inputs", VALIDATE_KERNELS,
+                             lambda: pt.validate_inputs(p, q), results)
+    peak = torch.cuda.max_memory_allocated()
+    fast = pt.validate_inputs(p, q, subgroup_check=False)
+    for name, got in (("subgroup_check", full), ("no_subgroup_check", fast)):
+        check(got.dtype == torch.bool and tuple(got.shape) == (BATCH,),
+              f"validate_inputs ({name}): {got.dtype} {tuple(got.shape)}")
+        diff = [i for i, (g, w) in enumerate(zip(got.tolist(), want[name])) if g != w]
+        check(not diff, f"validate_inputs ({name}) differs from the oracle at lanes {diff[:8]}")
+    runs = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        pt.validate_inputs(p, q)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / runs * 1e3
+    entry = results["trajectory_end"]
+    print(f"validation path: validate_inputs at {BATCH} lanes equals the oracle's masks lane for "
+          f"lane with and without the subgroup check (bad lanes: {bad}; oracle {oracle_s:.1f} s); "
+          f"{ms:.3f} ms per call ({runs} calls; first call {first_s:.3f} s), kernel H's end-only "
+          f"mode {entry['ms']:.4f} ms of it, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}); peak device memory {peak / 2**30:.3f} GiB, "
+          f"{(peak - held_before) / 2**20:.1f} MiB above the {held_before / 2**30:.3f} GiB held "
+          f"before, on {card}", flush=True)
+
+
+def stream_path(results, card: str, g1s, g2s, want):
+    """``pairing_stream`` over STREAM_PAIRS pairs in chunks of BATCH on the
+    card, checkpointed; then resumed from its checkpoints, and refused
+    against changed inputs. Every lane against the oracle's value of its
+    distinct pair."""
+    from pairing_tpu_torch.fields.fp import int_to_limbs
+    from pairing_tpu_torch.parallel.runner import pairing_stream
+    from pairing_tpu_torch.utils.config import PairingConfig
+
+    n = STREAM_PAIRS
+    g1 = [g1s[i % UNIQUE] for i in range(n)]
+    g2 = [g2s[i % UNIQUE] for i in range(n)]
+    want_limbs = np.asarray([[int_to_limbs(v) for v in row] for row in want])  # [UNIQUE, 12, 21]
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = PairingConfig(device=DEVICE, chunk_size=BATCH, checkpoint_dir=ckpt)
+        chunks, seconds = run_path("pairing_stream", PAIRING_KERNELS,
+                                   lambda: list(pairing_stream(g1, g2, cfg)), results)
+        sizes = [len(ch) for ch in chunks]
+        check(sizes == [BATCH, BATCH, n - 2 * BATCH], f"pairing_stream chunk sizes {sizes}")
+        start = 0
+        for i, ch in enumerate(chunks):
+            check(ch.shape[1:] == (12, 21), f"chunk {i}: shape {ch.shape}")
+            idx = (start + np.arange(len(ch))) % UNIQUE
+            check(bool((ch == want_limbs[idx]).all()),
+                  f"pairing_stream chunk {i} differs from the oracle")
+            start += len(ch)
+        t0 = time.perf_counter()
+        again = list(pairing_stream(g1, g2, cfg))
+        resume_s = time.perf_counter() - t0
+        check(len(again) == len(chunks) and all(np.array_equal(a, b)
+                                                for a, b in zip(again, chunks)),
+              "the resumed pairing_stream differs from the first run")
+        changed = list(g1)
+        changed[0] = g1s[1]
+        try:
+            next(iter(pairing_stream(changed, g2, cfg)))
+        except ValueError:
+            refused = True
+        else:
+            refused = False
+        check(refused, "pairing_stream resumed against changed inputs")
+    print(f"stream path: pairing_stream over {n} pairs in chunks of {BATCH} ({sizes}) equals the "
+          f"oracle on every lane; {seconds:.3f} s = {n / seconds:.1f} pairs/s with the codec, the "
+          f"checkpoints and the host in the loop, on {card}; resumed from its checkpoints in "
+          f"{resume_s:.3f} s, equal; refused against changed inputs", flush=True)
+
+
 def check_written(path, label):
     from pairing_tpu_torch.witness import (check_pairing_constraints, load_pairing_witness,
                                            verify_pairing_witness)
@@ -1026,6 +1186,8 @@ def main() -> int:
     split_final_exp_path(results, p, q, canon)
     fq12_pow_path(results, card)
     klayout_path(results)
+    validation_path(results, card, g1s, g2s)
+    stream_path(results, card, g1s, g2s, want)
 
     # "launches" is the count in the path each kernel (mode) serves
     home = {n: "pairing" for n in PAIRING_KERNELS}
@@ -1033,7 +1195,7 @@ def main() -> int:
                 exp_bits="pairing_witness", affine_export="pairing_witness",
                 hard_chain="pairing_fused_chain", pow_ladder_w4="split_final_exp",
                 fq12_sq="fq12_pow", fq12_mul_sparse="kernel_layout_ops",
-                pow_ladder="kernel_layout_ops")
+                pow_ladder="kernel_layout_ops", trajectory_end="validate_inputs")
     for name, r in results.items():
         r["launches"] = r["launches_by_path"][home[name]]
     print(json.dumps({"kernels": [results[n] for n in KERNEL_SOURCES]}))

@@ -14,19 +14,51 @@ Public entry points mirror the reference:
     fq12_to_int_coeffs(out)
 
 ``multi_pairing(ps, qs)`` takes points with a leading pairs axis K and
-returns the product of the K pairings. Witness generation, its npz format
-and the two checkers are in ``pairing_tpu_torch.witness``.
+returns the product of the K pairings. ``validate_inputs(p, q)`` masks the
+lanes whose P is on the curve and whose Q is on the twist and in G2.
+Witness generation, its npz format and the two checkers are in
+``pairing_tpu_torch.witness``; chunked, checkpointed streaming in
+``pairing_tpu_torch.parallel.runner.pairing_stream`` (configured by
+``utils.config.PairingConfig``).
 """
 
-from .curves.g1 import G1, g1_from_ints
-from .curves.g2 import G2, g2_from_ints
+from .curves.g1 import G1, g1_from_ints, g1_neg, g1_on_curve, g1_to_ints
+from .curves.g2 import (
+    G2,
+    g2_from_ints,
+    g2_in_subgroup,
+    g2_neg,
+    g2_on_curve,
+    g2_to_ints,
+    neg_twisted_frobenius,
+    twisted_frobenius,
+)
 from .fields.fp12 import Fq12, fq12_from_int_coeffs, fq12_to_int_coeffs
-from .pairing.api import multi_pairing, pairing
+from .pairing.api import multi_pairing, pairing, validate_inputs
 from .pairing.final_exp import final_exp
 from .pairing.miller_loop import miller_loop, multi_miller_loop
 
 __all__ = [
-    "G1", "G2", "Fq12", "pairing", "multi_pairing", "miller_loop", "multi_miller_loop",
+    "G1",
+    "G2",
+    "Fq12",
+    "pairing",
+    "multi_pairing",
+    "miller_loop",
+    "multi_miller_loop",
     "final_exp",
-    "g1_from_ints", "g2_from_ints", "fq12_from_int_coeffs", "fq12_to_int_coeffs",
+    "g1_from_ints",
+    "g1_to_ints",
+    "g1_neg",
+    "g1_on_curve",
+    "g2_from_ints",
+    "g2_to_ints",
+    "g2_neg",
+    "g2_on_curve",
+    "g2_in_subgroup",
+    "validate_inputs",
+    "twisted_frobenius",
+    "neg_twisted_frobenius",
+    "fq12_from_int_coeffs",
+    "fq12_to_int_coeffs",
 ]

@@ -12,6 +12,14 @@
 // register file, and the step's Fq2 arithmetic ran on the fq2_vm
 // instruction interpreter to keep the kernel IR small.
 //
+// The end-only mode (k_trajectory<false>; pt_trajectory with tops and dbls
+// null) runs the same ladder for any digit string and stores only end: the
+// G2 subgroup check's [6x^2] Q over the 127 digits of get_naf(6 x^2), whose
+// tops and post-doubles (2 x 127 states a lane, about 2.1 GB at 16384
+// lanes) nobody reads. The template flag removes the stores at compile
+// time; the main path's instantiation k_trajectory<true> is the kernel as
+// it was.
+//
 // Bound on the H100: integer multiply-adds, 5 Fq2 squares and 2 products a
 // doubling, 4 and 7 an addition (about 1.41 ms for 16384 lanes over the 64
 // steps of the Miller loop), against 2 x 1008 bytes written per step and
@@ -300,6 +308,10 @@ static __device__ __forceinline__ void lane_mixed_add(uint32_t* p, const int32_t
   __syncwarp();
 }
 
+// kStore: every loop top and post-double is stored (the Miller loop's
+// trajectory); without it only the end state is (the G2 subgroup check's
+// ladder), and tops and dbls are not read.
+template <bool kStore>
 __global__ void __launch_bounds__(H_THREADS, 2)
 k_trajectory(const int32_t* __restrict__ q, const int32_t* __restrict__ digits, int n_steps,
              int32_t* __restrict__ tops, int32_t* __restrict__ dbls,
@@ -332,9 +344,9 @@ k_trajectory(const int32_t* __restrict__ q, const int32_t* __restrict__ digits, 
   __syncwarp();
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
-    if (live) store_state(cur, tops + t * state_words + lane, n, h);
+    if (kStore && live) store_state(cur, tops + t * state_words + lane, n, h);
     lane_double(cur, nxt, tmp, h);
-    if (live) store_state(nxt, dbls + t * state_words + lane, n, h);
+    if (kStore && live) store_state(nxt, dbls + t * state_words + lane, n, h);
     const int d = __ldg(digits + t);
     if (d != 0) {
       lane_mixed_add(nxt, qc, n, d < 0, cur, tmp, h);
@@ -347,19 +359,32 @@ k_trajectory(const int32_t* __restrict__ q, const int32_t* __restrict__ digits, 
   if (live) store_state(cur, end + lane, n, h);
 }
 
-}  // namespace pt
-
-extern "C" int pt_trajectory(const int32_t* q, const int32_t* digits, int n_steps, int32_t* tops,
+// Both instantiations ask for the same dynamic shared memory; the attribute
+// is set on the device that is current at the launch.
+template <bool kStore>
+static int launch_trajectory(const int32_t* q, const int32_t* digits, int n_steps, int32_t* tops,
                              int32_t* dbls, int32_t* end, int lanes, void* stream) {
   if (lanes > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pt::k_trajectory, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pt::H_SMEM);
+        k_trajectory<kStore>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)H_SMEM);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (lanes + pt::H_BLOCK_LANES - 1) / pt::H_BLOCK_LANES;
-    pt::k_trajectory<<<blocks, pt::H_THREADS, pt::H_SMEM, (cudaStream_t)stream>>>(
+    const int blocks = (lanes + H_BLOCK_LANES - 1) / H_BLOCK_LANES;
+    k_trajectory<kStore><<<blocks, H_THREADS, H_SMEM, (cudaStream_t)stream>>>(
         q, digits, n_steps, tops, dbls, end, lanes);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace pt
+
+// tops and dbls both null select the end-only mode: only ``end`` [6, 21,
+// lanes] is written. One of them null alone is refused.
+extern "C" int pt_trajectory(const int32_t* q, const int32_t* digits, int n_steps, int32_t* tops,
+                             int32_t* dbls, int32_t* end, int lanes, void* stream) {
+  if ((tops == nullptr) != (dbls == nullptr)) return (int)cudaErrorInvalidValue;
+  if (tops == nullptr)
+    return pt::launch_trajectory<false>(q, digits, n_steps, nullptr, nullptr, end, lanes, stream);
+  return pt::launch_trajectory<true>(q, digits, n_steps, tops, dbls, end, lanes, stream);
 }
 
 // The dynamic shared memory a block of k_trajectory asks for at launch

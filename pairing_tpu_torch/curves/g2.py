@@ -3,8 +3,10 @@
 PyTorch counterpart of ``pairing_tpu/curves/g2.py``. The Miller loop never
 inverts per step: point trajectories run in Jacobian coordinates
 (``jac_double`` / ``jac_mixed_add``, a=0 formulas) and are converted to
-affine in bulk with one Fermat inversion per lane (``ops.norm_kernels``),
-value-identical to an affine chain because affine coordinates are unique.
+affine in bulk with one Fermat inversion per lane (``batch_to_affine``, on
+Phase N's kernels I, F and J), value-identical to an affine chain because
+affine coordinates are unique. ``g2_in_subgroup`` runs its [6x^2] Q ladder
+on kernel H's end-only mode.
 """
 
 from __future__ import annotations
@@ -12,7 +14,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
-from ..utils.bn254 import TWIST_C2, TWIST_C3
+import torch
+
+from ..utils.bn254 import BN_X, TWIST_B, TWIST_C2, TWIST_C3, get_naf
+from ..fields import fp as F
 from ..fields import fp2 as F2
 from ..fields.fp2 import Fp2
 
@@ -47,8 +52,44 @@ def g2_from_ints(points: Sequence[Tuple[Tuple[int, int], Tuple[int, int]]],
     )
 
 
+def g2_to_ints(p: G2):
+    xs = F2.fp2_to_ints(p.x)
+    ys = F2.fp2_to_ints(p.y)
+    return [
+        ((int(x[0]), int(x[1])), (int(y[0]), int(y[1]))) for x, y in zip(xs, ys)
+    ]
+
+
 def g2_neg(q: G2) -> G2:
     return G2(q.x, F2.neg(q.y))
+
+
+def g2_select(mask, a: G2, b: G2) -> G2:
+    return G2(F2.select(mask, a.x, b.x), F2.select(mask, a.y, b.y))
+
+
+def g2_on_curve(q: G2):
+    """y^2 == x^3 + 3/xi: bool [batch]."""
+    y2 = F2.square(q.y)
+    x3 = F2.mul(F2.square(q.x), q.x)
+    rhs = F2.add(x3, F2.fp2_from_ints(TWIST_B, q.batch_shape, q.x.device))
+    return F2.eq(y2, rhs)
+
+
+def g2_double_affine(q: G2) -> G2:
+    """Affine doubling (one inversion): the reference-parity path."""
+    lam = F2.mul(F2.scale(F2.square(q.x), 3), F2.inv(F2.scale(q.y, 2)))
+    x3 = F2.sub(F2.square(lam), F2.scale(q.x, 2))
+    y3 = F2.sub(F2.mul(lam, F2.sub(q.x, x3)), q.y)
+    return G2(x3, y3)
+
+
+def g2_add_affine(a: G2, b: G2) -> G2:
+    """Affine unequal addition (one inversion)."""
+    lam = F2.mul(F2.sub(b.y, a.y), F2.inv(F2.sub(b.x, a.x)))
+    x3 = F2.sub(F2.sub(F2.square(lam), a.x), b.x)
+    y3 = F2.sub(F2.mul(lam, F2.sub(a.x, x3)), a.y)
+    return G2(x3, y3)
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +139,87 @@ def jac_mixed_add(p: G2Jac, q: G2) -> G2Jac:
 
 def jac_cap(p: G2Jac) -> G2Jac:
     return G2Jac(F2.cap(p.X), F2.cap(p.Y), F2.cap(p.Z))
+
+
+def jac_select(mask, a: G2Jac, b: G2Jac) -> G2Jac:
+    return G2Jac(
+        F2.select(mask, a.X, b.X),
+        F2.select(mask, a.Y, b.Y),
+        F2.select(mask, a.Z, b.Z),
+    )
+
+
+def batch_to_affine(pts: G2Jac) -> G2:
+    """Normalize a stack of Jacobian points (leading axis N: a trajectory,
+    or any extra batch axis) to affine with one Fq inversion per lane.
+
+    Montgomery's trick runs along axis 0 as Phase N of the Miller loop runs
+    it: prefix products (kernel I), the Fq2 inverse of the total (kernel F
+    inside), the running inverse (kernel J). CUDA tensors launch the
+    kernels, CPU tensors take their plain versions."""
+    from ..ops import fp_kernels as FPK
+    from ..ops import norm_kernels as NK
+    from ..ops.fq12_kernels import kfp2_view, kstack
+
+    Z = F2.cap(pts.Z)
+    n = Z.batch_shape[0]
+    inner = Z.batch_shape[1:]
+    flat = [F.Fp(c.limbs.reshape(n, -1, F.NLIMBS), c.bound, c.limb_bound) for c in (Z.c0, Z.c1)]
+    z = kstack(flat).transpose(0, 1).contiguous()  # [N, 2, NLIMBS, B]
+    prefix, total = NK.prefix_products(z)
+    tinv = F2.inv(kfp2_view(total), FPK.fp_inv)
+    zinv_rows = NK.running_inverse(z, prefix, kstack([tinv.c0, tinv.c1]))
+    view = kfp2_view(zinv_rows)  # batch [N, B]
+    zinv = Fp2(*(F.Fp(c.limbs.reshape((n,) + tuple(inner) + (F.NLIMBS,)), c.bound, c.limb_bound)
+                 for c in (view.c0, view.c1)))
+    zinv2 = F2.square(zinv)
+    zinv3 = F2.mul(zinv2, zinv)
+    return G2(x=F2.mul(pts.X, zinv2), y=F2.mul(pts.Y, zinv3))
+
+
+# ---------------------------------------------------------------------------
+# Subgroup membership (input validation)
+# ---------------------------------------------------------------------------
+
+#: The signed digits of 6x^2, MSB first, the leading 1 consumed: the
+#: [6x^2] Q ladder starts at Q (127 steps, 39 of them with an addition).
+SUBGROUP_NAF = get_naf(6 * BN_X * BN_X)
+assert SUBGROUP_NAF[-1] == 1
+SUBGROUP_DIGITS = tuple(SUBGROUP_NAF[-2::-1])
+
+
+def g2_in_subgroup(q: G2) -> torch.Tensor:
+    """Exact r-torsion membership test: psi(Q) == [6x^2]Q, batched.
+
+    The untwist-Frobenius endomorphism psi (``twisted_frobenius``) acts on
+    G2 as multiplication by t-1 = 6x^2. Conversely any on-twist Q with
+    psi(Q) = [6x^2]Q satisfies [(6x^2)^2 - t(6x^2) + p]Q = [p+1-t]Q =
+    [#E(Fp)]Q = [r]Q = O (the BN G1 cofactor is 1), so the test accepts
+    exactly the r-torsion.
+
+    The ladder (double, then add +-Q on a nonzero digit, from Q) runs on
+    kernel H's end-only mode (``ops.curve_kernels.trajectory_end``) on CUDA
+    tensors, on its plain version on CPU ones; the comparison X == psi(Q).x
+    Z^2, Y == psi(Q).y Z^3 is on canonical values.
+
+    Preconditions: Q on the twist (``g2_on_curve``) and not infinity. For
+    small-order Q the [6x^2] ladder can degenerate (mixed-add collision
+    drives Z to 0); all such collapses are rejected by the Z != 0 term.
+    Returns bool [batch].
+    """
+    from ..ops import curve_kernels as CK
+    from ..ops.fq12_kernels import kstack
+
+    bs = q.batch_shape
+    flat = [F.Fp(c.limbs.reshape(-1, F.NLIMBS), c.bound, c.limb_bound)
+            for c in (q.x.c0, q.x.c1, q.y.c0, q.y.c1)]
+    acc = CK.jac_view(CK.trajectory_end(kstack(flat), SUBGROUP_DIGITS))
+    psi = twisted_frobenius(G2(Fp2(flat[0], flat[1]), Fp2(flat[2], flat[3])))
+    zz = F2.square(acc.Z)
+    zzz = F2.mul(zz, acc.Z)
+    z_nonzero = ~(F.fp_is_zero(acc.Z.c0) & F.fp_is_zero(acc.Z.c1))
+    ok = F2.eq(acc.X, F2.mul(psi.x, zz)) & F2.eq(acc.Y, F2.mul(psi.y, zzz)) & z_nonzero
+    return ok.reshape(bs)
 
 
 # ---------------------------------------------------------------------------

@@ -126,7 +126,18 @@ def fp_from_ints(xs: Sequence[int], device) -> Fp:
 
 def fp_from_ints_mont(xs: Sequence[int], device) -> Fp:
     """Host int list -> Montgomery-domain Fp batch (x * R mod p, canonical
-    digits), entered on the host."""
+    digits), entered on the host.
+
+    With the native codec (``pairing_tpu_torch.native``) each value is
+    packed to 32 little-endian bytes and enters the Montgomery domain in C;
+    without it, in Python. Both give the same canonical digits."""
+    from .. import native
+
+    if native.available():
+        buf = b"".join((int(x) % P).to_bytes(32, "little") for x in xs)
+        packed = np.frombuffer(buf, np.uint8).reshape(len(xs), 32)
+        return Fp(torch.as_tensor(native.unpack_mont(packed), device=device),
+                  bound=P, limb_bound=MASK)
     return fp_from_ints([(int(x) % P) * R_MONT % P for x in xs], device)
 
 
@@ -374,6 +385,23 @@ def canonical(a: Fp) -> Fp:
     return Fp(out, bound=P, limb_bound=MASK)
 
 
+def fp_select(mask: torch.Tensor, a: Fp, b: Fp) -> Fp:
+    """Elementwise select over the batch: mask ? a : b. mask: bool [...]."""
+    limbs = torch.where(mask.unsqueeze(-1), a.limbs, b.limbs)
+    return Fp(limbs, max(a.bound, b.bound), max(a.limb_bound, b.limb_bound))
+
+
+def fp_eq(a: Fp, b: Fp) -> torch.Tensor:
+    """Exact equality mod p (canonicalizes both sides): bool [...]. Two
+    representatives of one value below 2p may differ by p."""
+    ca, cb = canonical(a), canonical(b)
+    return (ca.limbs == cb.limbs).all(dim=-1)
+
+
+def fp_is_zero(a: Fp) -> torch.Tensor:
+    return (canonical(a).limbs == 0).all(dim=-1)
+
+
 def _cap_2p(a: Fp) -> Fp:
     """Normalize to the loop-stable envelope: bound <= 2p, settled limbs."""
     if a.bound > 2 * P:
@@ -402,3 +430,19 @@ def fp_pow_bits(a: Fp, e: int) -> Fp:
 def fp_inv(a: Fp) -> Fp:
     """Fermat inverse a^(p-2); Montgomery domain in/out."""
     return fp_pow_bits(a, P - 2)
+
+
+def batch_inv(elems: Sequence[Fp]) -> Tuple[Fp, ...]:
+    """Montgomery's batch-inversion trick: one fp_inv for N elements."""
+    n = len(elems)
+    assert n >= 1
+    prefix = [elems[0]]
+    for i in range(1, n):
+        prefix.append(mont_mul(prefix[-1], elems[i]))
+    inv_all = fp_inv(prefix[-1])
+    out: list = [None] * n
+    for i in range(n - 1, 0, -1):
+        out[i] = mont_mul(inv_all, prefix[i - 1])
+        inv_all = mont_mul(inv_all, elems[i])
+    out[0] = inv_all
+    return tuple(out)

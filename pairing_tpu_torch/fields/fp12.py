@@ -92,6 +92,14 @@ def fq12_to_int_coeffs(a: Fq12) -> list:
     return fq12_limbs_to_int_coeffs(fq12_to_canonical_limbs(a).cpu().numpy())
 
 
+def fq12_from_sparse(slots: Dict[int, Fp2], batch_shape, device) -> Fq12:
+    """Embed sparse Fq2 slots (e.g. a line function) into a full Fq12."""
+    full = []
+    for i in range(6):
+        full.append(slots[i] if i in slots else F2.zero(batch_shape, device))
+    return Fq12(tuple(full))
+
+
 # ---------------------------------------------------------------------------
 # Cheap coefficient-wise ops
 # ---------------------------------------------------------------------------
@@ -101,6 +109,19 @@ def conjugate(a: Fq12) -> Fq12:
     """Negate odd powers of w; equals the q^6-Frobenius, and the inverse on
     the cyclotomic unit subgroup."""
     return Fq12(tuple(s if i % 2 == 0 else F2.neg(s) for i, s in enumerate(a.s)))
+
+
+def fq12_select(mask, a: Fq12, b: Fq12) -> Fq12:
+    return Fq12(tuple(F2.select(mask, x, y) for x, y in zip(a.s, b.s)))
+
+
+def fq12_eq(a: Fq12, b: Fq12):
+    """Equality mod p of every coefficient: bool [...]."""
+    out = None
+    for x, y in zip(a.s, b.s):
+        e = F2.eq(x, y)
+        out = e if out is None else out & e
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +328,14 @@ def fq12_inv(a: Fq12) -> Fq12:
     out_a = _fq6_mul(A, dinv)
     out_b = _fq6_mul(tuple(F2.neg(x) for x in B), dinv)
     return Fq12((out_a[0], out_b[0], out_a[1], out_b[1], out_a[2], out_b[2]))
+
+
+def fq12_div(a: Fq12, b: Fq12) -> Fq12:
+    """a / b through ``ops.inv_kernels.fq12_inv``: kernel G on CUDA
+    tensors, its plain version (this module's ``fq12_inv``) on CPU ones."""
+    from ..ops.inv_kernels import fq12_inv as kfq12_inv
+
+    return fq12_mul(a, kfq12_inv(b))
 
 
 def fq12_cap(a: Fq12) -> Fq12:

@@ -47,6 +47,14 @@ def fp2_stack_from_ints(pairs, device) -> Fp2:
     )
 
 
+def fp2_to_ints(a: Fp2, mont: bool = True):
+    """Device -> host list of (c0, c1) ints (undoes Montgomery)."""
+    x = Fp2(F.from_mont(a.c0), F.from_mont(a.c1)) if mont else a
+    c0 = F.fp_to_ints(F.canonical(x.c0))
+    c1 = F.fp_to_ints(F.canonical(x.c1))
+    return list(zip(c0.reshape(-1), c1.reshape(-1)))
+
+
 def add(a: Fp2, b: Fp2) -> Fp2:
     return Fp2(F.fp_add(a.c0, b.c0), F.fp_add(a.c1, b.c1))
 
@@ -116,6 +124,15 @@ def inv(a: Fp2, fp_inv=F.fp_inv) -> Fp2:
         F.mont_reduce(F.mul_wide(a.c0, n_inv)),
         F.mont_reduce(F.mul_wide(F.fp_neg(a.c1), n_inv)),
     )
+
+
+def select(mask, a: Fp2, b: Fp2) -> Fp2:
+    return Fp2(F.fp_select(mask, a.c0, b.c0), F.fp_select(mask, a.c1, b.c1))
+
+
+def eq(a: Fp2, b: Fp2):
+    """Equality mod p of both components: bool [...]."""
+    return F.fp_eq(a.c0, b.c0) & F.fp_eq(a.c1, b.c1)
 
 
 def zero(batch_shape: Tuple[int, ...], device) -> Fp2:

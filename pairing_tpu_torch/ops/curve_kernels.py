@@ -4,14 +4,15 @@ The counterpart of ``pairing_tpu/ops/curve_kernels.py``'s
 ``trajectory_pallas``. Input: affine Q as component rows [4, NLIMBS, B]
 (x.c0, x.c1, y.c0, y.c1). Output: the Jacobian loop tops and post-doubles
 [n_steps, 6, NLIMBS, B] (X, Y, Z as Fq2 row pairs) and the end state
-[6, NLIMBS, B], every state in the (2p, settled) envelope.
+[6, NLIMBS, B], every state in the (2p, settled) envelope. Its end-only
+mode (``trajectory_end``) writes the end state alone: the G2 subgroup
+check's [6x^2] Q ladder (``curves.g2.g2_in_subgroup``).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from ..curves.g2 import G2, G2Jac, jac_cap, jac_double, jac_from_affine, jac_mixed_add
@@ -21,6 +22,7 @@ from . import dispatch
 from .fq12_kernels import kfp2_view, kstack
 
 TRAJECTORY = dispatch.KERNELS["trajectory"]
+TRAJECTORY_END = dispatch.KERNELS["trajectory_end"]
 
 
 def jac_rows(p: G2Jac) -> torch.Tensor:
@@ -33,32 +35,64 @@ def jac_view(rows: torch.Tensor) -> G2Jac:
     return G2Jac(kfp2_view(rows[0:2]), kfp2_view(rows[2:4]), kfp2_view(rows[4:6]))
 
 
+def _start(q_arr: torch.Tensor):
+    """(Q, -Q, R = Q in Jacobian form) of the affine rows [4, NLIMBS, B]."""
+    q = G2(kfp2_view(q_arr[0:2]), kfp2_view(q_arr[2:4]))
+    return q, G2(q.x, F2.cap(F2.neg(q.y))), jac_cap(jac_from_affine(q))
+
+
+def _step(cur: G2Jac, d: int, q: G2, nq: G2):
+    """One step from R: (2R, 2R + sign(d) Q or 2R)."""
+    dbl = jac_cap(jac_double(cur))
+    return dbl, jac_cap(jac_mixed_add(dbl, q if d > 0 else nq)) if d else dbl
+
+
 def trajectory_plain(q_arr: torch.Tensor, digits: Sequence[int]):
     """Plain PyTorch version of kernel H."""
-    q = G2(kfp2_view(q_arr[0:2]), kfp2_view(q_arr[2:4]))
-    nq = G2(q.x, F2.cap(F2.neg(q.y)))
-    cur = jac_cap(jac_from_affine(q))
+    q, nq, cur = _start(q_arr)
     tops, dbls = [], []
     for d in digits:
         tops.append(jac_rows(cur))
-        dbl = jac_cap(jac_double(cur))
+        dbl, cur = _step(cur, d, q, nq)
         dbls.append(jac_rows(dbl))
-        cur = jac_cap(jac_mixed_add(dbl, q if d > 0 else nq)) if d else dbl
     return torch.stack(tops), torch.stack(dbls), jac_rows(cur)
+
+
+def trajectory_end_plain(q_arr: torch.Tensor, digits: Sequence[int]) -> torch.Tensor:
+    """Plain PyTorch version of kernel H's end-only mode: the same steps,
+    only the running state kept."""
+    q, nq, cur = _start(q_arr)
+    for d in digits:
+        _, cur = _step(cur, d, q, nq)
+    return jac_rows(cur)
+
+
+def _launch(kernel, q_arr: torch.Tensor, digits, with_steps: bool):
+    lanes = q_arr.shape[-1]
+    dispatch.check_operand(q_arr, "q", (4,), lanes)
+    n = len(digits)
+    opts = dict(dtype=torch.int32, device=q_arr.device)
+    tops = torch.empty((n, 6, NLIMBS, lanes), **opts) if with_steps else None
+    dbls = torch.empty((n, 6, NLIMBS, lanes), **opts) if with_steps else None
+    end = torch.empty((6, NLIMBS, lanes), **opts)
+    table = dispatch.bits_table(tuple(int(d) for d in digits), q_arr.device)
+    kernel(q_arr, table, n, tops, dbls, end, lanes)
+    return tops, dbls, end
 
 
 def trajectory(q_arr: torch.Tensor, digits: Sequence[int]):
     """Per NAF digit d (MSB first): emit the loop top R, double it, emit the
     double, and add sign(d) Q on a nonzero digit. Returns (tops, dbls, end)."""
-    digits = np.asarray(digits, np.int32)
     if not dispatch.on_cuda(q_arr):
-        return trajectory_plain(q_arr, digits.tolist())
-    lanes = q_arr.shape[-1]
-    dispatch.check_operand(q_arr, "q", (4,), lanes)
-    n = len(digits)
-    opts = dict(dtype=torch.int32, device=q_arr.device)
-    tops = torch.empty((n, 6, NLIMBS, lanes), **opts)
-    dbls = torch.empty((n, 6, NLIMBS, lanes), **opts)
-    end = torch.empty((6, NLIMBS, lanes), **opts)
-    TRAJECTORY(q_arr, torch.as_tensor(digits, device=q_arr.device), n, tops, dbls, end, lanes)
-    return tops, dbls, end
+        return trajectory_plain(q_arr, [int(d) for d in digits])
+    return _launch(TRAJECTORY, q_arr, digits, True)
+
+
+def trajectory_end(q_arr: torch.Tensor, digits: Sequence[int]) -> torch.Tensor:
+    """The end state [6, NLIMBS, B] of :func:`trajectory`'s ladder, without
+    its tops and post-doubles: from R = Q, per digit R = 2R + sign(d) Q (or
+    2R on a zero digit); [e] Q for the MSB-first signed digits of e with its
+    leading 1 consumed."""
+    if not dispatch.on_cuda(q_arr):
+        return trajectory_end_plain(q_arr, [int(d) for d in digits])
+    return _launch(TRAJECTORY_END, q_arr, digits, False)[2]

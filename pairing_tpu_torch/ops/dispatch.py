@@ -9,12 +9,26 @@ plain integer, so a run can show that its main path went through it.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from ..fields.fp import NLIMBS
 from . import build
+
+
+class Host:
+    """A host table handed to a C entry by its address: the entry reads it
+    on the host before the launch (kernel E's and K15's programs, K13's
+    segment table). It is not a device operand and takes no part in the
+    choice of the device."""
+
+    def __init__(self, t: torch.Tensor):
+        if t.device.type != "cpu" or not t.is_contiguous():
+            raise ValueError(f"a host table must be a contiguous CPU tensor, not {t.device}")
+        self.tensor = t
 
 
 class Kernel:
@@ -26,12 +40,25 @@ class Kernel:
         self.launches = 0
 
     def __call__(self, *args) -> None:
-        """Launch on the current CUDA stream. ``args`` are tensors (passed
-        as device pointers) and ints, in the C entry point's order."""
+        """Launch on the current stream of the device the tensor arguments
+        are on, with that device current (so the C entry's
+        ``cudaFuncSetAttribute`` calls apply to it too). ``args`` are tensors
+        (device operands, passed as device pointers), :class:`Host` tables,
+        ints, and None (a null pointer), in the C entry point's order.
+        Raises ValueError unless every tensor argument is on one CUDA
+        device."""
+        devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            raise ValueError(f"{self.name}: operands on {sorted(map(str, devices))}, "
+                             "want one CUDA device")
+        (dev,) = devices
         lib, _ = build.load()
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, self.entry)(*c_args, stream)
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else
+                  a.tensor.data_ptr() if isinstance(a, Host) else
+                  a if a is None else int(a) for a in args]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, self.entry)(*c_args, stream)
         if err != 0:
             msg = lib.pt_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed: CUDA error {err} ({msg})")
@@ -43,7 +70,9 @@ class Kernel:
 #: the dense product, ``fq12_mul_sparse`` the product by a line (some slots of
 #: b absent); kernel C's ``miller_f`` is one pair per product without
 #: collection, ``miller_f_multi`` several pairs per product,
-#: ``miller_f_collect`` any launch that writes the per-step accumulator.
+#: ``miller_f_collect`` any launch that writes the per-step accumulator;
+#: kernel H's ``trajectory`` stores every loop top and post-double,
+#: ``trajectory_end`` the end state alone.
 KERNELS = {
     name: Kernel(name, entry)
     for name, entry in (
@@ -59,6 +88,7 @@ KERNELS = {
         ("fp_pow_bits", "pt_fp_pow_bits"),
         ("fq12_inv", "pt_fq12_inv"),
         ("trajectory", "pt_trajectory"),
+        ("trajectory_end", "pt_trajectory"),
         ("prefix_products", "pt_prefix_products"),
         ("running_inverse", "pt_running_inverse"),
         ("lines", "pt_lines"),
@@ -78,6 +108,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+@lru_cache(maxsize=None)
+def bits_table(bits: tuple, device: torch.device) -> torch.Tensor:
+    """A kernel's digit or bit string (K12's bits, H's, K16's and K17's
+    digits), int32 [len(bits)] on ``device``: built once per (bits, device),
+    so a launch copies nothing from the host."""
+    return torch.as_tensor(np.asarray(bits, np.int32), device=device)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -79,5 +79,5 @@ def affine_export(xy, zinv: torch.Tensor) -> torch.Tensor:
                           for i, t in enumerate(segs)], dtype=torch.int64)
     dispatch.check_operand(zinv, "zinv", (n_states, 2), lanes)
     out = torch.empty((n_states, 4, NLIMBS, lanes), dtype=torch.int32, device=zinv.device)
-    AFFINE_EXPORT(table, len(segs), zinv, n_states, out, lanes)
+    AFFINE_EXPORT(dispatch.Host(table), len(segs), zinv, n_states, out, lanes)
     return out

@@ -28,6 +28,7 @@ from ..fields.fp import Fp
 from ..fields.fp2 import Fp2
 from ..utils.bn254 import BN_X, BN_X_NAF, P, get_wnaf
 from . import dispatch
+from .dispatch import bits_table
 from . import klayout as KL
 from .fq12_kernels import kf12_from, kf12_view
 
@@ -235,14 +236,6 @@ def exp_bits_ladder_plain(x: torch.Tensor, bits) -> torch.Tensor:
             f = F12.fq12_cap(F12.fq12_mul(f, xv))
         rows.append(kf12_from(f))
     return torch.stack(rows)
-
-
-@lru_cache(maxsize=None)
-def bits_table(bits: tuple, device: torch.device) -> torch.Tensor:
-    """Kernel K12's bits, or kernel K16's or K17's digits, int32
-    [len(bits)] on ``device``: built once per (bits, device), so a launch
-    copies nothing from the host."""
-    return torch.as_tensor(np.asarray(bits, np.int32), device=device)
 
 
 def exp_bits_ladder(x: torch.Tensor, bits):
@@ -480,6 +473,6 @@ def hard_chain(m, mx, mx2, mx3) -> torch.Tensor:
         dispatch.check_operand(x, name, (12,), lanes)
     prog, ops, consts = _hard_chain_consts()
     out = torch.empty_like(m)
-    HARD_CHAIN(m, mx, mx2, mx3, prog, len(HARD_CHAIN_PROG), ops, consts, HARD_CHAIN_OUT, out,
-               lanes)
+    HARD_CHAIN(m, mx, mx2, mx3, dispatch.Host(prog), len(HARD_CHAIN_PROG), dispatch.Host(ops),
+               dispatch.Host(consts), HARD_CHAIN_OUT, out, lanes)
     return out

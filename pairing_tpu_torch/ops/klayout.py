@@ -105,7 +105,7 @@ def slotwise(a: torch.Tensor, power) -> torch.Tensor:
     dispatch.check_operand(a, "a", (12,), lanes)
     ops, consts = _slot_prog_host(power)
     out = torch.empty_like(a)
-    FQ12_SLOTWISE(a, ops, consts, out, lanes)
+    FQ12_SLOTWISE(a, dispatch.Host(ops), dispatch.Host(consts), out, lanes)
     return out
 
 

@@ -6,13 +6,14 @@ same for both) and the result is the batch of Fq12 pairing values.
 ``multi_pairing(ps, qs)`` is the product of K pairings with one shared final
 exponentiation (the Groth16-verification shape): the leading axis of ps/qs
 is K. Between the two public edges everything stays in the batch-last
-kernel layout.
+kernel layout. ``validate_inputs(p, q)`` is the batched mask of inputs the
+pairing is defined on.
 """
 
 from __future__ import annotations
 
-from ..curves.g1 import G1
-from ..curves.g2 import G2
+from ..curves.g1 import G1, g1_on_curve
+from ..curves.g2 import G2, g2_in_subgroup, g2_on_curve
 from ..fields.fp12 import Fq12
 from ..ops.fq12_kernels import from_kernel_layout
 from .final_exp import final_exp_k
@@ -30,3 +31,21 @@ def multi_pairing(ps: G1, qs: G2) -> Fq12:
     squarings in the Miller loop and one final exponentiation; batched over
     the remaining axes."""
     return from_kernel_layout(final_exp_k(multi_miller_loop_k(qs, ps)), ps.batch_shape[1:])
+
+
+def validate_inputs(p: G1, q: G2, subgroup_check: bool = True):
+    """Batched input validation mask for ``pairing(p, q)``.
+
+    Returns bool [batch]: True iff P is on E (which rejects the (0,0)
+    infinity encoding, since b != 0), Q is on the twist, and — with
+    ``subgroup_check`` — Q lies in the r-torsion subgroup G2
+    (``curves.g2.g2_in_subgroup``: one launch of kernel H's end-only mode
+    on CUDA tensors, 127 doublings and 39 additions a lane; gate it off for
+    trusted inputs). G1 needs no subgroup check: the BN254 G1 cofactor is
+    1, so every curve point qualifies. The pairing itself assumes validated
+    inputs; on invalid points its output is unspecified.
+    """
+    ok = g1_on_curve(p) & g2_on_curve(q)
+    if subgroup_check:
+        ok = ok & g2_in_subgroup(q)
+    return ok

@@ -269,6 +269,114 @@ def test_trajectory_kernel_matches_plain(gen, lanes, digits):
     assert_same(CK.trajectory(q, steps), CK.trajectory_plain(q, steps))
 
 
+@pytest.mark.parametrize("digits", ["subgroup", "runs"])
+@pytest.mark.parametrize("lanes", TRAJECTORY_LANE_COUNTS)
+def test_trajectory_end_kernel_matches_plain(gen, lanes, digits):
+    """Kernel H's end-only mode: one launch, counted apart, equal to its
+    plain version on the G2 subgroup check's 127 digits and on RUN_DIGITS."""
+    from pairing_tpu_torch.curves.g2 import SUBGROUP_DIGITS
+    from pairing_tpu_torch.ops import curve_kernels as CK
+
+    steps = list(SUBGROUP_DIGITS) if digits == "subgroup" else RUN_DIGITS
+    q = rand_kf12((4,), lanes, gen)
+    before, before_full = CK.TRAJECTORY_END.launches, CK.TRAJECTORY.launches
+    got = CK.trajectory_end(q, steps)
+    assert (CK.TRAJECTORY_END.launches, CK.TRAJECTORY.launches) == (before + 1, before_full)
+    assert_same(got, CK.trajectory_end_plain(q, steps))
+
+
+def _validation_lanes():
+    """tests/test_validate.py's four lanes: good, Q outside G2, P off the
+    curve, P = (0, 0)."""
+    import random
+
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.utils import bn254 as c
+
+    rng = random.Random(2024)
+    g2gen = (c.G2_GEN_X, c.G2_GEN_Y)
+    good_g1 = [o.g1_mul(c.G1_GEN, rng.randrange(1, c.R_SCALAR)) for _ in range(2)]
+    good_g2 = [o.g2_mul(g2gen, rng.randrange(1, c.R_SCALAR)) for _ in range(2)]
+    bad_q = next(pt for pt in (o.g2_point_from_x((x0, 1)) for x0 in range(1, 200))
+                 if pt is not None and not o.g2_in_subgroup(pt))
+    return ([good_g1[0], good_g1[1], (5, 5), (0, 0)],
+            [good_g2[0], bad_q, good_g2[1], good_g2[1]])
+
+
+def test_validate_inputs_on_card_matches_oracle(gen):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.utils import bn254 as c
+
+    g1s, g2s = _validation_lanes()
+    p, q = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
+    dispatch.reset_launch_counts()
+    mask = pt.validate_inputs(p, q)
+    assert dispatch.launch_counts()["trajectory_end"] == 1
+    assert mask.is_cuda and mask.tolist() == [True, False, False, False]
+    assert pt.validate_inputs(p, q, subgroup_check=False).tolist() == [True, True, False, False]
+    ks = pt.g2_from_ints([o.g2_mul((c.G2_GEN_X, c.G2_GEN_Y), k) for k in (1, 2, 3)], "cuda")
+    assert pt.g2_in_subgroup(ks).tolist() == [True, True, True]
+
+
+def test_batch_to_affine_on_card_matches_cpu_route(gen):
+    """Phase N's kernels I, F and J under batch_to_affine: equal to the CPU
+    route (their plain versions) on canonical values, and to the oracle."""
+    from pairing_tpu_torch.curves import g2 as TG2
+    from pairing_tpu_torch.fields import fp2 as F2
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.ops.curve_kernels import trajectory
+    from pairing_tpu_torch.ops.fq12_kernels import kfp2_view, kstack
+
+    _, g2s = _seeded_points(5, 14)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        q = TG2.g2_from_ints(g2s, dev)
+        tops, _, _ = trajectory(kstack([q.x.c0, q.x.c1, q.y.c0, q.y.c1]), RUN_DIGITS)
+        dispatch.reset_launch_counts()
+        aff = TG2.batch_to_affine(TG2.G2Jac(*(kfp2_view(tops[:, i:i + 2]) for i in (0, 2, 4))))
+        if dev == "cuda":
+            counts = dispatch.launch_counts()
+            assert all(counts[k] == 1 for k in ("prefix_products", "fp_pow_bits",
+                                                "running_inverse")), counts
+        outs[dev] = [F2.fp2_to_ints(aff.x), F2.fp2_to_ints(aff.y)]
+    assert outs["cuda"] == outs["cpu"]
+
+
+def test_pairing_stream_on_card(gen, tmp_path):
+    from pairing_tpu_torch.fields.fp12 import fq12_limbs_to_int_coeffs
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.parallel.runner import pairing_stream
+    from pairing_tpu_torch.utils.config import PairingConfig
+
+    g1s, g2s = _seeded_points(3, 15)
+    cfg = PairingConfig(device="cuda", chunk_size=2, checkpoint_dir=str(tmp_path))
+    out = list(pairing_stream(g1s, g2s, cfg))
+    assert [len(ch) for ch in out] == [2, 1]
+    got = [v for ch in out for v in fq12_limbs_to_int_coeffs(ch)]
+    assert got == [o.pairing(p, q) for p, q in zip(g1s, g2s)]
+    again = list(pairing_stream(g1s, g2s, cfg))
+    assert all(np.array_equal(a, b) for a, b in zip(out, again))
+
+
+def test_kernel_launches_on_its_operands_device(gen):
+    """With cuda:0 current, a launch on cuda:0 operands runs there (the
+    machine has one card, so another device cannot be tried); operands on
+    the CPU and the card together are refused before any launch."""
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+
+    a = rand_kf12((12,), 33, gen)
+    with torch.cuda.device(0):
+        before = FK.FQ12_MUL.launches
+        assert_same(FK.fq12_mul(a, a), FK.fq12_mul_plain(a, a))
+        assert FK.FQ12_MUL.launches == before + 1
+        out = torch.empty_like(a)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            FK.FQ12_MUL(a, a.cpu(), FK.DENSE, out, 33)
+        assert FK.FQ12_MUL.launches == before + 1
+
+
 @pytest.mark.parametrize("lanes", [33, 1024])
 def test_batch_inversion_kernels_match_plain(gen, lanes):
     from pairing_tpu_torch.ops import norm_kernels as NK
@@ -661,6 +769,7 @@ def test_hard_chain_entry_runs_in_place_programs_and_refuses_bad_ones(gen):
     kind of operation writes a register it reads (the kernel's second
     barrier) equals the plain interpreter; programs that
     ``check_chain_program`` refuses are refused by the entry too."""
+    from pairing_tpu_torch.ops import dispatch
     from pairing_tpu_torch.ops import fused_kernels as FU
     from pairing_tpu_torch.pairing.final_exp import easy_part_k
     from test_torch_sq_chain_kernels import IN_PLACE_PROG
@@ -672,7 +781,8 @@ def test_hard_chain_entry_runs_in_place_programs_and_refuses_bad_ones(gen):
     def launch(prog, out_reg):
         host = torch.as_tensor(np.asarray(prog, np.int32).reshape(-1, 4))
         out = torch.empty_like(xs[0])
-        FU.HARD_CHAIN(*xs, host, len(prog), ops, consts, out_reg, out, lanes)
+        FU.HARD_CHAIN(*xs, dispatch.Host(host), len(prog), dispatch.Host(ops),
+                      dispatch.Host(consts), out_reg, out, lanes)
         return out
 
     assert_same(launch(IN_PLACE_PROG, 7),

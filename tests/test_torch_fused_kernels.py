@@ -531,19 +531,41 @@ def test_pow_ladder_steps_by_ranks_match_plain(ladder, digits):
 
 
 def test_ladder_wrappers_take_cached_digits_and_size_k17_scratch(monkeypatch):
-    """On the card path K16's and K17's digits come from ``bits_table``,
-    built once per (digits, device), and K17's scratch table spans whole
-    blocks of K17_BLOCK_LANES: the launches are recorded here in place of
-    the kernels, on CPU operands."""
-    calls = []
+    """On the card path K16's and K17's digits, and kernel H's in both its
+    modes, come from ``bits_table``, built once per (digits, device), and
+    K17's scratch table spans whole blocks of K17_BLOCK_LANES: the launches
+    are recorded here in place of the kernels, on CPU operands."""
+    from pairing_tpu_torch.curves.g2 import SUBGROUP_DIGITS
+    from pairing_tpu_torch.ops import curve_kernels as CK
+    from pairing_tpu_torch.pairing.miller_loop import STEP_DIGITS
+
+    calls, h_calls = [], []
     monkeypatch.setattr(FU.dispatch, "on_cuda", lambda *ts: True)
     monkeypatch.setattr(FU, "POW_LADDER", lambda *args: calls.append(("naf", args)))
     monkeypatch.setattr(FU, "POW_LADDER_W4", lambda *args: calls.append(("w4", args)))
+    monkeypatch.setattr(CK, "TRAJECTORY", lambda *args: h_calls.append(("full", args)))
+    monkeypatch.setattr(CK, "TRAJECTORY_END", lambda *args: h_calls.append(("end", args)))
     for lanes in (3, 41):
         m = torch.zeros((12, 21, lanes), dtype=torch.int32)
         FU.pow_ladder(m, m, FU.BN_X_LADDER_DIGITS)
         FU.pow_ladder_w4(m, FU.BN_X_W4_DIGITS)
+        q = torch.zeros((4, 21, lanes), dtype=torch.int32)
+        CK.trajectory(q, STEP_DIGITS)
+        CK.trajectory_end(q, SUBGROUP_DIGITS)
     cpu = torch.device("cpu")
+    miller_table = FU.bits_table(tuple(STEP_DIGITS), cpu)
+    sub_table = FU.bits_table(tuple(SUBGROUP_DIGITS), cpu)
+    assert miller_table.tolist() == list(STEP_DIGITS)
+    assert sub_table.tolist() == list(SUBGROUP_DIGITS)
+    assert [kind for kind, _ in h_calls] == ["full", "end"] * 2
+    for (_, full), (_, end), lanes in zip(h_calls[::2], h_calls[1::2], (3, 41)):
+        _, digits, n, tops, dbls, out, n_lanes = full
+        assert digits is miller_table and n == len(STEP_DIGITS) and n_lanes == lanes
+        assert tuple(tops.shape) == tuple(dbls.shape) == (n, 6, 21, lanes)
+        assert tuple(out.shape) == (6, 21, lanes)
+        _, digits, n, tops, dbls, out, n_lanes = end
+        assert digits is sub_table and n == len(SUBGROUP_DIGITS) and n_lanes == lanes
+        assert tops is None and dbls is None and tuple(out.shape) == (6, 21, lanes)
     naf_table = FU.bits_table(tuple(FU.BN_X_LADDER_DIGITS.tolist()), cpu)
     w4_table = FU.bits_table(tuple(FU.BN_X_W4_DIGITS.tolist()), cpu)
     assert naf_table.tolist() == FU.BN_X_LADDER_DIGITS.tolist() and naf_table.min() == -1
