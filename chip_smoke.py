@@ -57,7 +57,27 @@ toolkit (nvcc). It
      the checkpoints (equal arrays) and once against changed inputs (it
      must refuse); prints pairs/s (the codec's and the host's time
      included);
- 10. prints one JSON line of per-kernel results, the card's name and power
+ 10. runs ``witness.stream.witness_stream`` over the main path's pairs tiled
+     to 65,536 lanes: a warm-up pass in chunks of 16384 in which every
+     chunk's ``out`` must equal ``pairing``'s canonical values on its lanes
+     and the first and the last chunk's host trace must equal, leaf for
+     leaf, a one-shot ``pairing_witness`` of those lanes copied out; then
+     timed passes in chunks of 16384 and of 8192 (each chunk's ``out``
+     checked after the clock): streamed witnesses/s with the trace on the
+     host, the same chunks computed and copied one after the other, the
+     one-shot rate on the device, host bytes a chunk, the first chunk's
+     time apart, and peak device memory, which must stay at most twice the
+     one-shot peak;
+ 11. runs the parallel layer on the one card: ``launch.init_distributed``
+     over NCCL with a world of one, ``mesh.pairing_data_parallel`` at 16384
+     lanes and ``mesh.multi_pairing_sharded`` at K = 4 over 16384 products,
+     equal to ``pairing`` and ``multi_pairing`` lane for lane with their
+     kernels launched, the all-gather collective over NCCL, and
+     ``pairing_stream`` with ``mesh_shape=(1,)`` equal to step 9's run;
+     then two processes of ``python -m pairing_tpu_torch.parallel.launch
+     --backend gloo --device cuda`` sharing the card (their own timeout),
+     each of which must print OK;
+ 12. prints one JSON line of per-kernel results, the card's name and power
      limit, and last ``{"ok": true, "device": {...}}``.
 
 Step 2 also holds B on random inputs beside cyclotomic ones, K15, K16,
@@ -85,7 +105,7 @@ E would be timed at the host's pace, kept as ``ms_eager``) and bound
 under ``programs`` (the conjugate and the powers 1, 2, 3), its ms and
 bound the means of theirs. K13 is also checked in the witness
 path's segment form. Every kernel's line gives its share of its bound.
-Launch counts are set to 0 just before each of the paths of steps 3-9 and
+Launch counts are set to 0 just before each of the paths of steps 3-11 and
 read just after; every kernel the path runs must have launched in it.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -167,6 +187,10 @@ POW_KERNELS = ("fq12_sq", "fq12_mul", "fq12_inv")
 KLAYOUT_KERNELS = ("fq12_mul_sparse", "pow_ladder", "fq12_sq")
 VALIDATE_KERNELS = ("trajectory_end",)
 STREAM_PAIRS = 40000  # two full chunks of BATCH and a ragged tail
+STREAM_LANES = 4 * BATCH  # witness_stream: four chunks of BATCH, eight of BATCH // 2
+LAUNCH_PROCESSES = 2  # launch --backend gloo --device cuda on the one card
+LAUNCH_BATCH = 16  # pairings a process in that run
+LAUNCH_TIMEOUT = 300
 RAGGED_LANES = 1029  # cuts kernel H's 16-lane warps and 64-lane blocks
 POW_E = 0b101101110101  # its NAF has -1 digits (tests/test_pairing.py)
 LINE_SHAPES = ((0, 3, 4), (2, 3, 5))
@@ -838,7 +862,7 @@ def multi_path(results, card: str, g1s, g2s):
     print(f"K-pair path: multi_pairing {per_batch:.3f} s per batch of {n_prod} products of "
           f"{K} = {n_prod / per_batch:.1f} products/s, {K * n_prod / per_batch:.1f} pairings/s "
           f"on {card}", flush=True)
-    return ps, qs
+    return ps, qs, canon
 
 
 @contextlib.contextmanager
@@ -1097,6 +1121,227 @@ def stream_path(results, card: str, g1s, g2s, want):
           f"oracle on every lane; {seconds:.3f} s = {n / seconds:.1f} pairs/s with the codec, the "
           f"checkpoints and the host in the loop, on {card}; resumed from its checkpoints in "
           f"{resume_s:.3f} s, equal; refused against changed inputs", flush=True)
+    return g1, g2, chunks
+
+
+def stream_pass(p, q, chunk: int, consume=None):
+    """One ``witness_stream`` pass: (the seconds at which each chunk was
+    handed over, host bytes a chunk, the outs, checked after the clock)."""
+    from pairing_tpu_torch.witness.stream import make_stream_fn, span_bytes, witness_stream
+
+    run, n_bytes = make_stream_fn(), []
+
+    def fn(pc, qc):
+        res = run(pc, qc)
+        if not n_bytes:
+            n_bytes.append(span_bytes(res))
+        return res
+
+    outs, handed = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start, out, trace in witness_stream(p, q, chunk, fn=fn):
+        handed.append(time.perf_counter() - t0)
+        if consume is not None:
+            consume(start, out, trace)
+        outs.append((start, out))
+        del trace
+    return handed, n_bytes[0], outs
+
+
+def serial_pass(p, q, chunk: int) -> float:
+    """The same chunks computed and copied out one after the other: compute,
+    then the same copy into pinned memory waited for at once."""
+    from pairing_tpu_torch.utils.interop import map_limbs
+    from pairing_tpu_torch.witness import pairing_witness
+    from pairing_tpu_torch.witness.stream import copy_out, map_tensors
+
+    n = p.batch_shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(0, n, chunk):
+        cut = lambda limbs: limbs[start:start + chunk]  # noqa: E731
+        host = copy_out(pairing_witness(map_limbs(p, cut), map_limbs(q, cut)), non_blocking=True)
+        torch.cuda.synchronize()
+        map_tensors(host, lambda t: t.numpy())
+        del host
+    return time.perf_counter() - t0
+
+
+def witness_stream_path(results, card: str, g1s, g2s, p, q, canon):
+    """``witness_stream`` over the main path's pairs tiled to STREAM_LANES
+    lanes, in chunks of BATCH and of BATCH // 2, after one checked warm-up
+    pass in chunks of BATCH: every chunk's out equal to ``pairing``'s
+    canonical values on its lanes, the first and the last chunk's host trace
+    equal leaf for leaf to a one-shot ``pairing_witness`` of those lanes
+    copied out (the lanes repeat every UNIQUE, so both chunks hold the main
+    path's lanes). Then streamed witnesses/s beside the serial loop and the
+    one-shot rate, host bytes a chunk, the first chunk apart, and peak
+    device memory against the one-shot peak."""
+    from pairing_tpu_torch.fields.fp12 import fq12_to_canonical_limbs
+    from pairing_tpu_torch.utils.interop import fq12_from_leaves, map_limbs
+    from pairing_tpu_torch.witness import pairing_witness
+    from pairing_tpu_torch.witness.stream import copy_out, span_bytes, tensor_leaves
+
+    def leaves(tree):
+        return tensor_leaves(tree, (np.ndarray, torch.Tensor))
+
+    n = STREAM_LANES
+    pw, qw = tiled_points(g1s, g2s, (n,))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one_shot = pairing_witness(p, q)
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated() - base
+    dev_bytes = span_bytes(one_shot)
+    want = leaves(copy_out(one_shot, non_blocking=False))
+    del one_shot
+
+    def check_out(start, out, what):
+        limbs = [c.limbs for s in out.s for c in (s.c0, s.c1)]
+        got = fq12_to_canonical_limbs(fq12_from_leaves(limbs, DEVICE))
+        lo = start % BATCH
+        check(bool((got == canon[lo:lo + len(got)]).all()),
+              f"witness_stream ({what}) chunk at {start}: out differs from pairing's")
+
+    def check_chunk(start, out, trace):
+        check_out(start, out, "warm-up")
+        if start in (0, n - BATCH):
+            got = leaves((out, trace))
+            check(len(got) == len(want), f"chunk at {start}: {len(got)} leaves, want {len(want)}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                check(g.shape == tuple(w.shape) and np.array_equal(g, w.numpy()),
+                      f"witness_stream chunk at {start}: trace leaf {i} differs from the one-shot")
+
+    (handed, _, _), _ = run_path(
+        "witness_stream", WITNESS_KERNELS, lambda: stream_pass(pw, qw, BATCH, check_chunk),
+        results)
+    del want
+    print(f"witness stream: warm-up pass over {n} lanes in chunks of {BATCH} ({handed[-1]:.3f} "
+          f"s, first chunk {handed[0]:.3f} s): every chunk's out equals pairing's, the first and "
+          f"the last chunk's host trace equal the one-shot pairing_witness leaf for leaf",
+          flush=True)
+    for chunk in (BATCH, BATCH // 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        handed, n_bytes, outs = stream_pass(pw, qw, chunk)
+        peak = torch.cuda.max_memory_allocated() - base
+        for start, out in outs:
+            check_out(start, out, f"chunks of {chunk}")
+        del outs
+        serial = serial_pass(pw, qw, chunk)
+        cut = lambda limbs: limbs[:chunk]  # noqa: E731
+        pc, qc = map_limbs(pw, cut), map_limbs(qw, cut)
+        pairing_witness(pc, qc)
+        one = float("inf")
+        for _ in range(3):  # the fastest: the rate the stream is held to
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pairing_witness(pc, qc)
+            torch.cuda.synchronize()
+            one = min(one, time.perf_counter() - t0)
+        # the first chunk waits for two chunks' compute (and any first page-locking of
+        # pinned blocks); the last for its own copy alone; between them each hand-over
+        # is one chunk's compute with the previous chunk's copy beside it
+        total, first = handed[-1], handed[0]
+        period = (handed[-2] - first) / (len(handed) - 2)
+        print(f"witness stream, chunks of {chunk}: {n / total:.1f} streamed witnesses/s with the "
+              f"trace on the host ({total:.3f} s for {n} lanes; first chunk {first:.3f} s; then "
+              f"one chunk each {period:.4f} s = {chunk / period:.1f}/s over the "
+              f"{len(handed) - 2} overlapped hand-overs; the last chunk's copy "
+              f"{handed[-1] - handed[-2]:.4f} s after); serial loop {n / serial:.1f}/s "
+              f"({serial:.3f} s); one-shot on the "
+              f"device {chunk / one:.1f}/s (the fastest of 3 calls, {one:.4f} s); host bytes a chunk {n_bytes} "
+              f"({n_bytes / 2**30:.3f} GiB); peak device memory {peak / 2**30:.3f} GiB above the "
+              f"inputs (one-shot at {BATCH} lanes {one_peak / 2**30:.3f} GiB, its trace "
+              f"{dev_bytes / 2**30:.3f} GiB), on {card}", flush=True)
+        check(peak <= 2 * one_peak, f"witness_stream in chunks of {chunk}: peak {peak} above "
+              f"twice the one-shot peak {one_peak}")
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def parallel_path(results, card: str, p, q, canon, ps, qs, multi_canon, g1, g2, chunks):
+    """The parallel layer on the one card: (a) a world of one over NCCL,
+    ``pairing_data_parallel`` at BATCH lanes and ``multi_pairing_sharded``
+    at K_PAIRS x BATCH products, equal to ``pairing`` and ``multi_pairing``
+    lane for lane, then the all-gather collective over NCCL at BATCH
+    lanes; (c) ``pairing_stream`` with ``mesh_shape=(1,)`` equal to the
+    unsharded run; (b) two processes of ``parallel.launch --backend gloo
+    --device cuda`` sharing the card, each checking its shard and the
+    product of 2 x 2 pairings (the butterfly's exchange) against the
+    oracle."""
+    import torch.distributed as dist
+
+    from pairing_tpu_torch.parallel import launch
+    from pairing_tpu_torch.parallel import mesh as M
+    from pairing_tpu_torch.parallel.collectives import fq12_reduce_mul_psum_style
+    from pairing_tpu_torch.parallel.runner import pairing_stream
+    from pairing_tpu_torch.utils.config import PairingConfig
+
+    print(f"parallel: NCCL available: {dist.is_nccl_available()}; gloo available: "
+          f"{dist.is_gloo_available()}", flush=True)
+    launch.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        data = M.make_mesh((1,), ("data",))
+        out, dp_s = run_path("pairing_data_parallel", PAIRING_KERNELS,
+                             lambda: M.pairing_data_parallel(data, p, q), results)
+        check(bool((canonical(out) == canon).all()), "pairing_data_parallel differs from pairing")
+        pairs = M.make_mesh((1,), ("pairs",))
+        out, mp_s = run_path("multi_pairing_sharded", MULTI_KERNELS,
+                             lambda: M.multi_pairing_sharded(pairs, ps, qs), results)
+        check(bool((canonical(out) == multi_canon).all()),
+              "multi_pairing_sharded differs from multi_pairing")
+        gathered = fq12_reduce_mul_psum_style(out, pairs.get_group("pairs"))
+        check(bool((canonical(gathered) == multi_canon).all()),
+              "the all-gather collective over NCCL changed its value")
+        cfg = PairingConfig(device=DEVICE, chunk_size=BATCH, mesh_shape=(1,))
+        sharded, st_s = run_path("pairing_stream_sharded", PAIRING_KERNELS,
+                                 lambda: list(pairing_stream(g1, g2, cfg)), results)
+        check(len(sharded) == len(chunks) and all(np.array_equal(a, b)
+                                                  for a, b in zip(sharded, chunks)),
+              "pairing_stream with mesh_shape=(1,) differs from the unsharded run")
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel, NCCL world of 1: pairing_data_parallel at {BATCH} lanes equals pairing lane "
+          f"for lane ({dp_s:.3f} s), multi_pairing_sharded at K = {K_PAIRS} over {BATCH} products "
+          f"equals multi_pairing ({mp_s:.3f} s), the all-gather collective keeps it, "
+          f"pairing_stream with mesh_shape=(1,) equals the unsharded run over {len(g1)} pairs "
+          f"({st_s:.3f} s), on {card}", flush=True)
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pairing_tpu_torch.parallel.launch", "--backend", "gloo",
+         "--device", "cuda", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", str(LAUNCH_PROCESSES), "--process-id", str(r),
+         "--per-device-batch", str(LAUNCH_BATCH)],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(LAUNCH_PROCESSES)]
+    t0 = time.perf_counter()
+    try:
+        outs = [pr.communicate(timeout=LAUNCH_TIMEOUT)[0] for pr in procs]
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.communicate()
+    for r, (pr, text) in enumerate(zip(procs, outs)):
+        ok = [ln for ln in text.splitlines()
+              if ln.startswith(f"process {r}/{LAUNCH_PROCESSES}:") and ln.endswith(": OK")]
+        check(pr.returncode == 0 and len(ok) == 1,
+              f"launch process {r} (gloo, cuda) failed, rc {pr.returncode}:\n{text[-4000:]}")
+        print(f"parallel, launch --backend gloo --device cuda: {ok[0]}", flush=True)
+    print(f"parallel: {LAUNCH_PROCESSES} processes on the one card over gloo, "
+          f"{time.perf_counter() - t0:.1f} s with their start-up", flush=True)
 
 
 def check_written(path, label):
@@ -1177,17 +1422,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     g1s, g2s = seeded_pairs()
     p, q, canon, want = main_path(results, card, g1s, g2s)
-    ps, qs = multi_path(results, card, g1s, g2s)
+    ps, qs, multi_canon = multi_path(results, card, g1s, g2s)
     with tempfile.TemporaryDirectory() as tmp:
         witness_path(results, card, p, q, canon, Path(tmp))
         multi_witness(ps, qs, Path(tmp))
-    del ps, qs
     fused_chain_path(results, card, p, q, canon, want)
     split_final_exp_path(results, p, q, canon)
     fq12_pow_path(results, card)
     klayout_path(results)
     validation_path(results, card, g1s, g2s)
-    stream_path(results, card, g1s, g2s, want)
+    g1, g2, chunks = stream_path(results, card, g1s, g2s, want)
+    torch.cuda.empty_cache()
+    witness_stream_path(results, card, g1s, g2s, p, q, canon)
+    torch.cuda.empty_cache()
+    parallel_path(results, card, p, q, canon, ps, qs, multi_canon, g1, g2, chunks)
 
     # "launches" is the count in the path each kernel (mode) serves
     home = {n: "pairing" for n in PAIRING_KERNELS}

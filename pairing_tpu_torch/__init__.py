@@ -16,10 +16,12 @@ Public entry points mirror the reference:
 ``multi_pairing(ps, qs)`` takes points with a leading pairs axis K and
 returns the product of the K pairings. ``validate_inputs(p, q)`` masks the
 lanes whose P is on the curve and whose Q is on the twist and in G2.
-Witness generation, its npz format and the two checkers are in
-``pairing_tpu_torch.witness``; chunked, checkpointed streaming in
+Witness generation, its npz format, the two checkers and streamed witnesses
+(``witness.stream.witness_stream``) are in ``pairing_tpu_torch.witness``;
+chunked, checkpointed streaming in
 ``pairing_tpu_torch.parallel.runner.pairing_stream`` (configured by
-``utils.config.PairingConfig``).
+``utils.config.PairingConfig``); data parallelism and sharded K-pair
+products over ``torch.distributed`` in ``pairing_tpu_torch.parallel.mesh``.
 """
 
 from .curves.g1 import G1, g1_from_ints, g1_neg, g1_on_curve, g1_to_ints

@@ -2,6 +2,7 @@
 
   trace.pairing_witness        batched pairing_circuit semantics
   trace.fq12_exp_u64           starky fq12_exp_u64_circuit (C12) shape
+  stream.witness_stream        chunked witnesses, copy-out overlapping compute
   serialize.save_pairing_witness / load_pairing_witness   npz format
   verify.verify_pairing_witness  the `connect` analogue (replay checker)
   constraints.check_pairing_constraints  limb-level AIR identity checker

@@ -833,3 +833,83 @@ def test_fq12_pow_on_card_matches_oracle(gen):
         got = pt.fq12_to_int_coeffs(fq12_pow(a, e))
         assert dispatch.launch_counts()["fq12_sq"] > 0
         assert got == [o.pow_fq12(x, e) for x in coeffs]
+
+
+def test_witness_stream_on_card_matches_one_shot(gen):
+    """witness_stream on CUDA tensors (a side stream copies chunk i out while
+    chunk i + 1 computes): each chunk's host trace equal, leaf for leaf, to
+    a one-shot pairing_witness of its lanes."""
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.utils.interop import map_limbs
+    from pairing_tpu_torch.witness import pairing_witness
+    from pairing_tpu_torch.witness.stream import tensor_leaves, witness_stream
+
+    g1s, g2s = _seeded_points(6, 16)
+    p, q = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
+    got = list(witness_stream(p, q, 2))
+    assert [start for start, _, _ in got] == [0, 2, 4]
+    for start, out, trace in got:
+        def cut(limbs):
+            return limbs[start:start + 2]
+
+        want = tensor_leaves(pairing_witness(map_limbs(p, cut), map_limbs(q, cut)))
+        host = tensor_leaves((out, trace), np.ndarray)
+        assert not tensor_leaves((out, trace)) and len(host) == len(want) > 100
+        for h, w in zip(host, want):
+            assert h.shape == tuple(w.shape)
+            np.testing.assert_array_equal(h, w.cpu().numpy())
+
+
+@pytest.fixture(scope="module")
+def nccl_world1(gen):
+    """A process group of one rank over NCCL, torn down after the module."""
+    import socket
+
+    import torch.distributed as dist
+    from pairing_tpu_torch.parallel import launch
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    launch.init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["fq12_all_reduce_mul", "fq12_reduce_mul_psum_style"])
+def test_collectives_world1_over_nccl(gen, nccl_world1, name):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields.fp12 import fq12_to_canonical_limbs
+    from pairing_tpu_torch.parallel import collectives
+    from pairing_tpu_torch.utils import bn254 as c
+
+    rng = np.random.default_rng(17)
+    coeffs = [[int.from_bytes(rng.bytes(40), "little") % c.P for _ in range(12)]
+              for _ in range(3)]
+    f = pt.fq12_from_int_coeffs(coeffs, "cuda")
+    out = getattr(collectives, name)(f)
+    assert out.device.type == "cuda"
+    assert torch.equal(fq12_to_canonical_limbs(out), fq12_to_canonical_limbs(f))
+
+
+def test_mesh_entry_points_world1_over_nccl(gen, nccl_world1):
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.parallel import mesh as M
+    from pairing_tpu_torch.utils.interop import reshape_points
+
+    K, B = 2, 2
+    g1s, g2s = _seeded_points(K * B, 18)
+    ps = reshape_points(pt.g1_from_ints(g1s, "cuda"), (K, B))
+    qs = reshape_points(pt.g2_from_ints(g2s, "cuda"), (K, B))
+    dispatch.reset_launch_counts()
+    out = M.multi_pairing_sharded(M.make_mesh((1,), ("pairs",)), ps, qs)
+    assert dispatch.launch_counts()["miller_f_multi"] == 1
+    want = [o.final_exp(o.multi_miller_loop([(g1s[k * B + b], g2s[k * B + b])
+                                             for k in range(K)])) for b in range(B)]
+    assert pt.fq12_to_int_coeffs(out) == want
+    p, q = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
+    shard = M.pairing_data_parallel(M.make_mesh((1,), ("data",)), p, q)
+    assert pt.fq12_to_int_coeffs(shard) == [o.pairing(a, b) for a, b in zip(g1s, g2s)]
