@@ -1,0 +1,8 @@
+"""Device ms a witness chunk of the kernels launched inside the port's
+``miller_loop.*`` ranges (phases B, N, C and the collecting D)."""
+
+from bench_gpu.metrics._common import device_ms_in
+
+
+def read(trace):
+    return device_ms_in(trace, ("miller_loop.",))
