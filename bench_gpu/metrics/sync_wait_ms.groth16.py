@@ -1,0 +1,9 @@
+"""ms a verify call that the host waited in the blocking copies that
+``host_syncs.groth16`` counts: from each copy's launch call to the end of
+the host operation that made it, on the host's clock."""
+
+from bench_gpu.metrics._spans import sync_wait_ms
+
+
+def read(trace):
+    return sync_wait_ms(trace)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
+from torch.profiler import record_function
+
 from ..fields import fp as F
 from ..fields.fp import Fp
 
@@ -44,8 +46,9 @@ def g1_neg(p: G1) -> G1:
 
 
 def g1_on_curve(p: G1):
-    """y^2 == x^3 + 3: bool [batch]."""
-    y2 = F.mont_mul(p.y, p.y)
-    x3 = F.mont_mul(F.mont_mul(p.x, p.x), p.x)
-    rhs = F.fp_add(x3, F.fp_const_mont(3, p.batch_shape, p.x.device))
-    return F.fp_eq(y2, rhs)
+    """y^2 == x^3 + 3: bool [batch]; a ``validate.g1_on_curve`` range."""
+    with record_function("validate.g1_on_curve"):
+        y2 = F.mont_mul(p.y, p.y)
+        x3 = F.mont_mul(F.mont_mul(p.x, p.x), p.x)
+        rhs = F.fp_add(x3, F.fp_const_mont(3, p.batch_shape, p.x.device))
+        return F.fp_eq(y2, rhs)

@@ -15,6 +15,7 @@ import dataclasses
 from typing import Sequence, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..utils.bn254 import BN_X, TWIST_B, TWIST_C2, TWIST_C3, get_naf
 from ..fields import fp as F
@@ -69,11 +70,12 @@ def g2_select(mask, a: G2, b: G2) -> G2:
 
 
 def g2_on_curve(q: G2):
-    """y^2 == x^3 + 3/xi: bool [batch]."""
-    y2 = F2.square(q.y)
-    x3 = F2.mul(F2.square(q.x), q.x)
-    rhs = F2.add(x3, F2.fp2_from_ints(TWIST_B, q.batch_shape, q.x.device))
-    return F2.eq(y2, rhs)
+    """y^2 == x^3 + 3/xi: bool [batch]; a ``validate.g2_on_curve`` range."""
+    with record_function("validate.g2_on_curve"):
+        y2 = F2.square(q.y)
+        x3 = F2.mul(F2.square(q.x), q.x)
+        rhs = F2.add(x3, F2.fp2_from_ints(TWIST_B, q.batch_shape, q.x.device))
+        return F2.eq(y2, rhs)
 
 
 def g2_double_affine(q: G2) -> G2:
@@ -200,7 +202,8 @@ def g2_in_subgroup(q: G2) -> torch.Tensor:
     The ladder (double, then add +-Q on a nonzero digit, from Q) runs on
     kernel H's end-only mode (``ops.curve_kernels.trajectory_end``) on CUDA
     tensors, on its plain version on CPU ones; the comparison X == psi(Q).x
-    Z^2, Y == psi(Q).y Z^3 is on canonical values.
+    Z^2, Y == psi(Q).y Z^3 is on canonical values. The check is a
+    ``validate.g2_subgroup`` range holding ``.ladder`` and ``.compare``.
 
     Preconditions: Q on the twist (``g2_on_curve``) and not infinity. For
     small-order Q the [6x^2] ladder can degenerate (mixed-add collision
@@ -210,16 +213,20 @@ def g2_in_subgroup(q: G2) -> torch.Tensor:
     from ..ops import curve_kernels as CK
     from ..ops.fq12_kernels import kstack
 
-    bs = q.batch_shape
-    flat = [F.Fp(c.limbs.reshape(-1, F.NLIMBS), c.bound, c.limb_bound)
-            for c in (q.x.c0, q.x.c1, q.y.c0, q.y.c1)]
-    acc = CK.jac_view(CK.trajectory_end(kstack(flat), SUBGROUP_DIGITS))
-    psi = twisted_frobenius(G2(Fp2(flat[0], flat[1]), Fp2(flat[2], flat[3])))
-    zz = F2.square(acc.Z)
-    zzz = F2.mul(zz, acc.Z)
-    z_nonzero = ~(F.fp_is_zero(acc.Z.c0) & F.fp_is_zero(acc.Z.c1))
-    ok = F2.eq(acc.X, F2.mul(psi.x, zz)) & F2.eq(acc.Y, F2.mul(psi.y, zzz)) & z_nonzero
-    return ok.reshape(bs)
+    with record_function("validate.g2_subgroup"):
+        bs = q.batch_shape
+        flat = [F.Fp(c.limbs.reshape(-1, F.NLIMBS), c.bound, c.limb_bound)
+                for c in (q.x.c0, q.x.c1, q.y.c0, q.y.c1)]
+        with record_function("validate.g2_subgroup.ladder"):
+            acc = CK.jac_view(CK.trajectory_end(kstack(flat), SUBGROUP_DIGITS))
+        with record_function("validate.g2_subgroup.compare"):
+            psi = twisted_frobenius(G2(Fp2(flat[0], flat[1]), Fp2(flat[2], flat[3])))
+            zz = F2.square(acc.Z)
+            zzz = F2.mul(zz, acc.Z)
+            z_nonzero = ~(F.fp_is_zero(acc.Z.c0) & F.fp_is_zero(acc.Z.c1))
+            ok = (F2.eq(acc.X, F2.mul(psi.x, zz)) & F2.eq(acc.Y, F2.mul(psi.y, zzz))
+                  & z_nonzero)
+            return ok.reshape(bs)
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,13 @@ same for both) and the result is the batch of Fq12 pairing values.
 exponentiation (the Groth16-verification shape): the leading axis of ps/qs
 is K. Between the two public edges everything stays in the batch-last
 kernel layout. ``validate_inputs(p, q)`` is the batched mask of inputs the
-pairing is defined on.
+pairing is defined on. Each entry is a ``torch.profiler.record_function``
+range: ``pairing.pairing``, ``pairing.multi_pairing``, ``validate.inputs``.
 """
 
 from __future__ import annotations
+
+from torch.profiler import record_function
 
 from ..curves.g1 import G1, g1_on_curve
 from ..curves.g2 import G2, g2_in_subgroup, g2_on_curve
@@ -22,15 +25,17 @@ from .miller_loop import flatten_pairs, miller_loop_k, multi_miller_loop_k
 
 def pairing(p: G1, q: G2) -> Fq12:
     """e(P, Q) = final_exp(miller_loop(Q, P)); batched."""
-    qf, pf, bs = flatten_pairs(q, p)
-    return from_kernel_layout(final_exp_k(miller_loop_k(qf, pf)), bs)
+    with record_function("pairing.pairing"):
+        qf, pf, bs = flatten_pairs(q, p)
+        return from_kernel_layout(final_exp_k(miller_loop_k(qf, pf)), bs)
 
 
 def multi_pairing(ps: G1, qs: G2) -> Fq12:
     """prod_k e(P_k, Q_k) over the leading axis K of ps/qs, with shared
     squarings in the Miller loop and one final exponentiation; batched over
     the remaining axes."""
-    return from_kernel_layout(final_exp_k(multi_miller_loop_k(qs, ps)), ps.batch_shape[1:])
+    with record_function("pairing.multi_pairing"):
+        return from_kernel_layout(final_exp_k(multi_miller_loop_k(qs, ps)), ps.batch_shape[1:])
 
 
 def validate_inputs(p: G1, q: G2, subgroup_check: bool = True):
@@ -45,7 +50,8 @@ def validate_inputs(p: G1, q: G2, subgroup_check: bool = True):
     1, so every curve point qualifies. The pairing itself assumes validated
     inputs; on invalid points its output is unspecified.
     """
-    ok = g1_on_curve(p) & g2_on_curve(q)
-    if subgroup_check:
-        ok = ok & g2_in_subgroup(q)
-    return ok
+    with record_function("validate.inputs"):
+        ok = g1_on_curve(p) & g2_on_curve(q)
+        if subgroup_check:
+            ok = ok & g2_in_subgroup(q)
+        return ok

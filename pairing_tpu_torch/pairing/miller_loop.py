@@ -24,7 +24,9 @@ Phases B, N and C work per lane, so they run unchanged over K * B lanes. As
 in the reference, the two single epilogue states (end + Q1 and the twisted
 Frobenius points) and their two lines stay plain tensor code. Each phase is
 a ``torch.profiler.record_function`` range named ``miller_loop.<phase>``;
-the witness collection adds ``witness.affine_export`` (kernel K13).
+N's and C's kernels and glue have sub-ranges of their own (N: ``.points``,
+``.prefix``, ``.inverse``, ``.running``; C: ``.lines``, ``.epilogue``). The
+witness collection adds ``witness.affine_export`` (kernel K13).
 """
 
 from __future__ import annotations
@@ -109,20 +111,27 @@ def _miller_core(qs: G2, ps: G1, collect: bool = False):
         tops, dbls, end = CK.trajectory(q_rows, STEP_DIGITS)
 
     with record_function("miller_loop.N_normalize"):
-        # the epilogue points (miller_loop_native.rs:183-188)
-        q1 = twisted_frobenius(qc)
-        nq2 = neg_twisted_frobenius(q1)
-        st91 = CK.jac_rows(jac_cap(jac_mixed_add(CK.jac_view(end), q1)))
-        z = torch.cat([tops[:, 4:6], dbls[:, 4:6], end[None, 4:6], st91[None, 4:6]])
-        prefix, total = NK.prefix_products(z)
-        tinv = F2.inv(kfp2_view(total), FPK.fp_inv)
-        zinv = NK.running_inverse(z, prefix, kstack([tinv.c0, tinv.c1]))
+        with record_function("miller_loop.N_normalize.points"):
+            # the epilogue points (miller_loop_native.rs:183-188)
+            q1 = twisted_frobenius(qc)
+            nq2 = neg_twisted_frobenius(q1)
+            st91 = CK.jac_rows(jac_cap(jac_mixed_add(CK.jac_view(end), q1)))
+            z = torch.cat([tops[:, 4:6], dbls[:, 4:6], end[None, 4:6], st91[None, 4:6]])
+        with record_function("miller_loop.N_normalize.prefix"):
+            prefix, total = NK.prefix_products(z)
+        with record_function("miller_loop.N_normalize.inverse"):
+            tinv = F2.inv(kfp2_view(total), FPK.fp_inv)
+            tinv = kstack([tinv.c0, tinv.c1])
+        with record_function("miller_loop.N_normalize.running"):
+            zinv = NK.running_inverse(z, prefix, tinv)
 
     with record_function("miller_loop.C_lines"):
-        pq = kstack([px, py, qc.x.c0, qc.x.c1, qc.y.c0, qc.y.c1])
-        tg, ch = LK.lines(tops, dbls, zinv, pq, STEP_DIGITS, CHORD_ROWS[:N_STEPS], N_ADDS)
-        ep = torch.stack([_epilogue_line(end, zinv[2 * N_STEPS], q1, px, py),
-                          _epilogue_line(st91, zinv[2 * N_STEPS + 1], nq2, px, py)])
+        with record_function("miller_loop.C_lines.lines"):
+            pq = kstack([px, py, qc.x.c0, qc.x.c1, qc.y.c0, qc.y.c1])
+            tg, ch = LK.lines(tops, dbls, zinv, pq, STEP_DIGITS, CHORD_ROWS[:N_STEPS], N_ADDS)
+        with record_function("miller_loop.C_lines.epilogue"):
+            ep = torch.stack([_epilogue_line(end, zinv[2 * N_STEPS], q1, px, py),
+                              _epilogue_line(st91, zinv[2 * N_STEPS + 1], nq2, px, py)])
 
     with record_function("miller_loop.D_miller_f"):
         out = miller_f(tg, ch, ep, MILLER_FLAGS, CHORD_ROWS, n_pairs=kshape[0], collect=collect)

@@ -32,6 +32,11 @@ contiguous copy is made on the device.
 
 On CPU tensors the same loop runs without streams or events: each chunk is
 computed, its leaves are copied the same way, and it is handed over.
+
+Steps 2 and 4 are ``torch.profiler.record_function`` ranges: issuing the
+copies is ``witness.stream.copy_out``, the host's wait for a copy event
+``witness.stream.wait`` (CUDA only), wrapping the host tree as numpy
+``witness.stream.handover``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import dataclasses
 from typing import Callable, Iterator, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..curves.g1 import G1
 from ..curves.g2 import G2
@@ -180,12 +186,17 @@ def witness_stream(
         return fn(map_limbs(p, cut), map_limbs(q, cut))
 
     def handed_over(host):
-        out, trace = map_tensors(host, torch.Tensor.numpy)
+        with record_function("witness.stream.handover"):
+            out, trace = map_tensors(host, torch.Tensor.numpy)
         return out, trace
 
     if not cuda:
         for start in range(0, n, chunk_size):
-            yield (start, *handed_over(copy_out(chunk(start), non_blocking=False)))
+            res = chunk(start)
+            with record_function("witness.stream.copy_out"):
+                host = copy_out(res, non_blocking=False)
+            del res
+            yield (start, *handed_over(host))
         return
 
     dev = p.x.limbs.device
@@ -194,13 +205,14 @@ def witness_stream(
     pending = None  # (start, host tree, copy event, device result) of the chunk in flight
     for start in range(0, n, chunk_size):
         res = chunk(start)
-        computed = torch.cuda.Event()
-        computed.record(current)
-        side.wait_event(computed)
-        with torch.cuda.stream(side):
-            host = copy_out(res, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record(side)
+        with record_function("witness.stream.copy_out"):
+            computed = torch.cuda.Event()
+            computed.record(current)
+            side.wait_event(computed)
+            with torch.cuda.stream(side):
+                host = copy_out(res, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side)
         if pending is not None:
             item = _drained(pending, handed_over)
             pending = None  # its copy has completed: its device tensors may go
@@ -218,5 +230,6 @@ def _drained(pending, handed_over):
     """Wait for a chunk's copy event (its device result still referenced
     by ``pending``); returns (start, out, trace) on the host."""
     start, host, copied, _ = pending
-    copied.synchronize()
+    with record_function("witness.stream.wait"):
+        copied.synchronize()
     return (start, *handed_over(host))

@@ -179,9 +179,10 @@ def multi_pairing_witness(ps: G1, qs: G2) -> Tuple[Fq12, Dict]:
     squarings (multi_miller_loop_BN_native, miller_loop_native.rs:192) and
     one final exponentiation, with the full per-transition trace. ``ps``/
     ``qs`` carry a leading pairs axis K. The Miller output stays in the
-    kernel layout between the two stages."""
-    inner = ps.batch_shape[1:]
-    f_arr, mtrace = multi_miller_loop_collect(qs, ps)
-    out, ftrace = final_exp_witness_k(f_arr, inner)
-    f = from_kernel_layout(f_arr, inner)
-    return out, {"miller": mtrace, "final_exp": ftrace, "miller_out": f}
+    kernel layout between the two stages. A ``witness.pairing`` range."""
+    with record_function("witness.pairing"):
+        inner = ps.batch_shape[1:]
+        f_arr, mtrace = multi_miller_loop_collect(qs, ps)
+        out, ftrace = final_exp_witness_k(f_arr, inner)
+        f = from_kernel_layout(f_arr, inner)
+        return out, {"miller": mtrace, "final_exp": ftrace, "miller_out": f}
