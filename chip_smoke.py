@@ -11,10 +11,11 @@ toolkit (nvcc). It
      registers and spills);
   2. checks every kernel and kernel mode against its plain PyTorch version
      on seeded operands made on the card, values below 2p with settled limbs:
-     the eleven of the main path (A dense Fq12 product, B cyclotomic square,
-     C Miller f-accumulation, D streamed x-power ladder, E conjugate/
-     Frobenius, F Fq power, G Fq12 inverse, H point trajectory, I/J the two
-     batch-inversion passes, K lines) at its shapes, then kernel C with K = 4
+     the thirteen of the main path (A dense Fq12 product, B cyclotomic
+     square, C Miller f-accumulation, D streamed x-power ladder, E
+     conjugate/Frobenius, F Fq power, G Fq12 inverse, H point trajectory,
+     I/J the two batch-inversion passes, K lines, the Miller loop's
+     epilogue points and lines) at its shapes, then kernel C with K = 4
      pairs per product and with per-step collection, K12 the witness bit
      ladder and K13 the affine export at the witness path's shapes. Canonical
      values must be equal (tolerance zero: exact integer arithmetic) and
@@ -23,7 +24,7 @@ toolkit (nvcc). It
   3. runs the main path, ``pairing_tpu_torch.pairing`` at batch 16384 with
      256 distinct seeded pairs tiled: all 256 distinct lanes must equal the
      port's pure-integer oracle, every tiled lane its original, and each of
-     the eleven kernels must have launched; prints pairings/s;
+     the thirteen kernels must have launched; prints pairings/s;
   4. runs ``multi_pairing`` at K = 4 over 16384 products (65,536 pairs from
      the same 256 distinct pairs): the first 64 products must equal the
      oracle's, every tiled product its original; prints products/s and
@@ -172,12 +173,16 @@ KERNEL_SOURCES = {
                    "pairing_tpu/ops/fused_kernels.py:953"),
     "trajectory_end": ("pairing_tpu_torch/csrc/trajectory.cu",
                        "pairing_tpu/ops/curve_kernels.py:214"),
+    "epilogue_points": ("pairing_tpu_torch/csrc/miller_epilogue.cu",
+                        "no TPU kernel: XLA, pairing_tpu/pairing/miller_loop.py:269-277"),
+    "epilogue_lines": ("pairing_tpu_torch/csrc/miller_epilogue.cu",
+                       "no TPU kernel: XLA, pairing_tpu/pairing/miller_loop.py:340-341"),
 }
 
 #: The kernels each path runs; each must launch in its path's run.
 PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "fq12_slotwise",
                    "fp_pow_bits", "fq12_inv", "trajectory", "prefix_products",
-                   "running_inverse", "lines")
+                   "running_inverse", "lines", "epilogue_points", "epilogue_lines")
 MULTI_KERNELS = tuple("miller_f_multi" if n == "miller_f" else n for n in PAIRING_KERNELS)
 WITNESS_KERNELS = tuple(n for n in PAIRING_KERNELS if n not in ("miller_f", "pow_ladder_stream")
                         ) + ("miller_f_collect", "exp_bits", "affine_export")
@@ -629,6 +634,26 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
                    B * 21 * 4 * (4 * (ML.N_STEPS + n_adds) + 2 * (ML.N_STEPS + n_adds) + 6))
     add_ptxas(results["lines"], ptxas_log, "k_lines")
     del tops, dbls, pq, z, prefix, tinv, stream
+
+    # the epilogue: Frobenius maps (4 Fq2 products by constants) and a mixed
+    # addition (7 products, 4 squares); two chords with their affine forms
+    # (the bytes count the states' Z rows, which the lines do not read)
+    def epilogue_cases(lanes):
+        q_rows, end = rand(4, lanes=lanes), rand(6, lanes=lanes)
+        q1, nq2, st91 = CK.epilogue_points(q_rows, end)
+        largs = (end, st91, rand(2, 2, lanes=lanes), rand(2, lanes=lanes), q1, nq2)
+        return (("epilogue_points", lambda: CK.epilogue_points(q_rows, end),
+                 lambda: CK.epilogue_points_plain(q_rows, end),
+                 lanes * (11 * FP2_MUL + 4 * FP2_SQ), (q_rows, end)),
+                ("epilogue_lines", lambda: LK.epilogue_lines(*largs),
+                 lambda: LK.epilogue_lines_plain(*largs),
+                 lanes * 2 * (FP2_SQ + 5 * FP2_MUL + 4 * FP_MUL), largs))
+
+    for name, run, plain, imads, inputs in epilogue_cases(B):
+        compare_kernel(name, run, plain, results, bound, imads, nbytes(inputs))
+        add_ptxas(results[name], ptxas_log, "k_" + name)
+    for name, run, plain, imads, inputs in epilogue_cases(WIDE):
+        wide_case(results[name], bound, run, plain, imads, inputs)
 
     # this slice's kernel modes, at the shapes of the K-pair and witness paths
     miller_case("miller_f_multi", K_PAIRS, False)

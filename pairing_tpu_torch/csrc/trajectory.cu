@@ -59,139 +59,28 @@
 // never by a branch on the rank. The digit is the same in every lane, so
 // its branch is uniform.
 //
+// The slot arithmetic and the mixed addition live in trajectory.cuh, which
+// the Miller loop's epilogue points (miller_epilogue.cu) share; the doubling
+// is H's alone.
+//
 // The operations, their operands' order and every reduction are those of
 // field.cuh's fp2_mul / fp2_sq / fp_add / fp_sub / fp_small / fp_neg in the
 // one-thread kernel this replaces, and each computes the same integers, so
 // the digits of every output are those it wrote.
 #include <cuda_runtime.h>
 
-#include "field32.cuh"
+#include "trajectory.cuh"
 
 namespace pt {
 
-constexpr int H_LANES = 16;                     // lanes per warp
 constexpr int H_WARPS = 4;                      // warps per block
 constexpr int H_THREADS = 32 * H_WARPS;
 constexpr int H_BLOCK_LANES = H_LANES * H_WARPS;
-constexpr int H_COMP = NL * H_LANES;            // words of one component of a slot
-constexpr int H_SLOT = 2 * H_COMP;              // words of one Fq2 slot
 // Slots per lane: the states R (0-2) and S (3-5), X, Y, Z each, and four
 // temporaries.
 constexpr int H_SLOTS = 10;
 constexpr int H_WARP_WORDS = H_SLOTS * H_SLOT;
 constexpr size_t H_SMEM = (size_t)H_WARPS * H_WARP_WORDS * sizeof(uint32_t);
-
-// A slot's word for (comp, limb) of this lane: s + comp * H_COMP + limb *
-// H_LANES, where s already points at the lane's column of the slot.
-static __device__ __forceinline__ void ld(Fp& x, const uint32_t* s, int comp) {
-  const uint32_t* p = s + comp * H_COMP;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) x.v[l] = p[l * H_LANES];
-}
-
-static __device__ __forceinline__ void st(const Fp& x, uint32_t* s, int comp) {
-  uint32_t* p = s + comp * H_COMP;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) p[l * H_LANES] = x.v[l];
-}
-
-// w += x times the component of the slot b that fp2_mul pairs with
-// component c of its left operand for output component h: b_h for c = 0;
-// for c = 1, b0 (h = 1) or 2p - b1 (h = 0), selected limb by limb.
-static __device__ __forceinline__ void mac_b(Wide32& w, const Fp& x, const uint32_t* b, int c,
-                                             int h) {
-  Fp y;
-  ld(y, b, c ^ h);
-  if (c) {
-    const Fp ny = fp_neg(y);
-#pragma unroll
-    for (int l = 0; l < NL; ++l) y.v[l] = h ? y.v[l] : ny.v[l];
-  }
-  w32_mac(w, x, y);
-}
-
-// Component h of fp2_mul(a, b): a0 b0 + a1 (2p - b1) for h = 0, a0 b1 +
-// a1 b0 for h = 1, one reduction.
-static __device__ __forceinline__ Fp mul_part(const uint32_t* a, const uint32_t* b, int h) {
-  Wide32 w;
-  w32_zero(w);
-  Fp x;
-  ld(x, a, 0);
-  mac_b(w, x, b, 0, h);
-  ld(x, a, 1);
-  mac_b(w, x, b, 1, h);
-  Fp r;
-  w32_reduce(w, r);
-  return r;
-}
-
-// The same with the left operand the affine Q row pair at ``a`` (this lane's
-// column of two batch-last rows), negated when ``neg``.
-static __device__ __forceinline__ Fp mul_part_q(const int32_t* __restrict__ a, size_t lanes,
-                                                bool neg, const uint32_t* b, int h) {
-  Wide32 w;
-  w32_zero(w);
-#pragma unroll 1
-  for (int c = 0; c < 2; ++c) {
-    Fp x;
-    load_fp(x, a + c * NL * lanes, lanes);
-    if (neg) x = fp_neg(x);
-    mac_b(w, x, b, c, h);
-  }
-  Fp r;
-  w32_reduce(w, r);
-  return r;
-}
-
-// Component h of fp2_sq(a0 + a1 u), as field_group.cuh's fp2_sq_part:
-// (a0 + a1)(a0 - a1 + 2p) for h = 0, (2 a0) a1 for h = 1.
-static __device__ __forceinline__ Fp sq_of(const Fp& a0, const Fp& a1, int h) {
-  Fp x, y;
-#pragma unroll
-  for (int l = 0; l < NL; ++l) {
-    x.v[l] = h ? 2 * a0.v[l] : a0.v[l] + a1.v[l];
-    y.v[l] = h ? a1.v[l] : a0.v[l] + KP[KP_2][l] - a1.v[l];
-  }
-  fp_carry(x);
-  fp_carry(y);
-  Wide32 w;
-  w32_zero(w);
-  w32_mac(w, x, y);
-  Fp r;
-  w32_reduce(w, r);
-  return r;
-}
-
-// Component h of fp2_sq of the slot a.
-static __device__ __forceinline__ Fp sq_part(const uint32_t* a, int h) {
-  Fp a0, a1;
-  ld(a0, a, 0);
-  ld(a1, a, 1);
-  return sq_of(a0, a1, h);
-}
-
-// Component h of fp2_sq(fp2_add(a, b)).
-static __device__ __forceinline__ Fp sq_sum_part(const uint32_t* a, const uint32_t* b, int h) {
-  Fp u, v;
-  ld(u, a, 0);
-  ld(v, b, 0);
-  const Fp s0 = fp_add(u, v);
-  ld(u, a, 1);
-  ld(v, b, 1);
-  return sq_of(s0, fp_add(u, v), h);
-}
-
-// Component h of a slot (rows h, h + 2, h + 4 of a Jacobian state: X, Y, Z)
-// to the batch-last rows [6, 21, lanes] at dst (this lane's column).
-static __device__ __forceinline__ void store_state(const uint32_t* s, int32_t* __restrict__ dst,
-                                                   size_t lanes, int h) {
-#pragma unroll 1
-  for (int k = 0; k < 3; ++k) {
-    Fp x;
-    ld(x, s + k * H_SLOT, h);
-    store_fp(x, dst + (2 * k + h) * NL * lanes, lanes);
-  }
-}
 
 // jac_double: state p (slots px, py, pz) into state r; t0..t3 temporaries.
 static __device__ __forceinline__ void lane_double(const uint32_t* p, uint32_t* r, uint32_t* t,
@@ -238,76 +127,6 @@ static __device__ __forceinline__ void lane_double(const uint32_t* p, uint32_t* 
   __syncwarp();
 }
 
-// jac_mixed_add: state p plus the affine (qx, qy) into state r; (qx, qy)
-// at q (this lane's column of the rows [4, 21, lanes]), qy negated when
-// ``neg``. r's slots are written; of p's, only Z is (with a temporary, once
-// p's Z is read no more).
-static __device__ __forceinline__ void lane_mixed_add(uint32_t* p, const int32_t* __restrict__ q,
-                                                      size_t lanes, bool neg, uint32_t* r,
-                                                      uint32_t* t, int h) {
-  const uint32_t *X = p, *Y = p + H_SLOT;
-  uint32_t* Z = p + 2 * H_SLOT;
-  uint32_t *rX = r, *rY = r + H_SLOT, *rZ = r + 2 * H_SLOT;
-  uint32_t *t0 = t, *t1 = t + H_SLOT, *t2 = t + 2 * H_SLOT, *t3 = t + 3 * H_SLOT;
-  // stage 1: Z1Z1 = Z^2 (t0); T = qy Z (t1)
-  st(sq_part(Z, h), t0, h);
-  st(mul_part_q(q + 2 * NL * lanes, lanes, neg, Z, h), t1, h);
-  __syncwarp();
-  // stage 2: U2 = qx Z1Z1, S2 = T Z1Z1; H = U2 - X (t2), rr = 2(S2 - Y) (t3)
-  {
-    const Fp U2 = mul_part_q(q, lanes, false, t0, h);
-    Fp x;
-    ld(x, X, h);
-    st(fp_sub(U2, x), t2, h);
-  }
-  {
-    const Fp S2 = mul_part(t1, t0, h);
-    Fp y;
-    ld(y, Y, h);
-    st(small<2>(fp_sub(S2, y)), t3, h);
-  }
-  __syncwarp();
-  // stage 3: Z3 = (Z + H)^2 - Z1Z1 - HH (rZ); I = 4 HH (t1), HH = H^2;
-  // rr^2 (kept in rX)
-  {
-    Fp z;
-    ld(z, t0, h);
-    st(fp_sub(sq_sum_part(Z, t2, h), z), rZ, h);
-  }
-  {
-    const Fp HH = sq_part(t2, h);
-    st(small<4>(HH), t1, h);
-    Fp z;
-    ld(z, rZ, h);
-    st(fp_sub(z, HH), rZ, h);
-  }
-  st(sq_part(t3, h), rX, h);
-  __syncwarp();
-  // stage 4: J = H I (t0), V = X I; X3 = rr^2 - J - 2V (rX), W = V - X3 (Z's
-  // slot: p's Z is read no more)
-  {
-    const Fp J = mul_part(t2, t1, h);
-    st(J, t0, h);
-    const Fp V = mul_part(X, t1, h);
-    Fp s;
-    ld(s, rX, h);
-    const Fp X3 = fp_sub(fp_sub(s, J), small<2>(V));
-    st(X3, rX, h);
-    st(fp_sub(V, X3), Z, h);
-  }
-  __syncwarp();
-  // stage 5: Y3 = rr W - 2 Y J
-  {
-    const Fp m = mul_part(t3, Z, h);
-    st(m, rY, h);
-    const Fp yj = mul_part(Y, t0, h);
-    Fp u;
-    ld(u, rY, h);
-    st(fp_sub(u, small<2>(yj)), rY, h);
-  }
-  __syncwarp();
-}
-
 // kStore: every loop top and post-double is stored (the Miller loop's
 // trajectory); without it only the end state is (the G2 subgroup check's
 // ladder), and tops and dbls are not read.
@@ -349,7 +168,7 @@ k_trajectory(const int32_t* __restrict__ q, const int32_t* __restrict__ digits, 
     if (kStore && live) store_state(nxt, dbls + t * state_words + lane, n, h);
     const int d = __ldg(digits + t);
     if (d != 0) {
-      lane_mixed_add(nxt, qc, n, d < 0, cur, tmp, h);
+      lane_mixed_add(nxt, QRows{qc, n}, d < 0, cur, tmp, h);
     } else {
       uint32_t* s = cur;
       cur = nxt;

@@ -56,6 +56,8 @@ ENTRY_POINTS = {
     "pt_pow_ladder": (_P, _P, _P, _I, _P, _I, _P),
     "pt_pow_ladder_w4": (_P, _P, _I, _P, _I, _P, _I, _P),
     "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P),
+    "pt_epilogue_points": (_P, _P, _P, _P, _P, _I, _P),
+    "pt_epilogue_lines": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
 }
 
 

@@ -7,6 +7,10 @@ The counterpart of ``pairing_tpu/ops/curve_kernels.py``'s
 [6, NLIMBS, B], every state in the (2p, settled) envelope. Its end-only
 mode (``trajectory_end``) writes the end state alone: the G2 subgroup
 check's [6x^2] Q ladder (``curves.g2.g2_in_subgroup``).
+
+``epilogue_points`` runs the Miller loop's epilogue points on H's mixed
+addition (``k_epilogue_points``, ``csrc/miller_epilogue.cu``): Q1 = psi(Q),
+-Q2 = -psi(Q1) and end + Q1, which the reference leaves to XLA.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from typing import Sequence
 
 import torch
 
-from ..curves.g2 import G2, G2Jac, jac_cap, jac_double, jac_from_affine, jac_mixed_add
+from ..curves.g2 import (G2, G2Jac, jac_cap, jac_double, jac_from_affine, jac_mixed_add,
+                         neg_twisted_frobenius, twisted_frobenius)
 from ..fields import fp2 as F2
 from ..fields.fp import NLIMBS
 from . import dispatch
@@ -23,11 +28,22 @@ from .fq12_kernels import kfp2_view, kstack
 
 TRAJECTORY = dispatch.KERNELS["trajectory"]
 TRAJECTORY_END = dispatch.KERNELS["trajectory_end"]
+EPILOGUE_POINTS = dispatch.KERNELS["epilogue_points"]
 
 
 def jac_rows(p: G2Jac) -> torch.Tensor:
     """G2Jac of batch [..., B] -> rows [6, ..., NLIMBS, B]."""
     return kstack([p.X.c0, p.X.c1, p.Y.c0, p.Y.c1, p.Z.c0, p.Z.c1])
+
+
+def g2_rows(p: G2) -> torch.Tensor:
+    """G2 of batch [B] -> rows [4, NLIMBS, B] (x.c0, x.c1, y.c0, y.c1)."""
+    return kstack([p.x.c0, p.x.c1, p.y.c0, p.y.c1])
+
+
+def g2_view(rows: torch.Tensor) -> G2:
+    """Rows [4, NLIMBS, B] -> G2 views, envelope (2p, settled)."""
+    return G2(kfp2_view(rows[0:2]), kfp2_view(rows[2:4]))
 
 
 def jac_view(rows: torch.Tensor) -> G2Jac:
@@ -37,7 +53,7 @@ def jac_view(rows: torch.Tensor) -> G2Jac:
 
 def _start(q_arr: torch.Tensor):
     """(Q, -Q, R = Q in Jacobian form) of the affine rows [4, NLIMBS, B]."""
-    q = G2(kfp2_view(q_arr[0:2]), kfp2_view(q_arr[2:4]))
+    q = g2_view(q_arr)
     return q, G2(q.x, F2.cap(F2.neg(q.y))), jac_cap(jac_from_affine(q))
 
 
@@ -96,3 +112,30 @@ def trajectory_end(q_arr: torch.Tensor, digits: Sequence[int]) -> torch.Tensor:
     if not dispatch.on_cuda(q_arr):
         return trajectory_end_plain(q_arr, [int(d) for d in digits])
     return _launch(TRAJECTORY_END, q_arr, digits, False)[2]
+
+
+def epilogue_points_plain(q_arr: torch.Tensor, end: torch.Tensor):
+    """Plain PyTorch version of ``k_epilogue_points``: the Miller loop's
+    eager epilogue points (miller_loop_native.rs:183-188)."""
+    q1 = twisted_frobenius(g2_view(q_arr))
+    nq2 = neg_twisted_frobenius(q1)
+    return g2_rows(q1), g2_rows(nq2), jac_rows(jac_cap(jac_mixed_add(jac_view(end), q1)))
+
+
+def epilogue_points(q_arr: torch.Tensor, end: torch.Tensor):
+    """From the capped affine Q rows [4, NLIMBS, B] and kernel H's end state
+    [6, NLIMBS, B]: (q1, nq2, st91) with q1 = twisted_frobenius(Q) and nq2 =
+    neg_twisted_frobenius(q1) as rows [4, NLIMBS, B], st91 = end + q1
+    (madd-2007-bl) as rows [6, NLIMBS, B]; every value below 2p with
+    settled limbs."""
+    if not dispatch.on_cuda(q_arr, end):
+        return epilogue_points_plain(q_arr, end)
+    lanes = q_arr.shape[-1]
+    dispatch.check_operand(q_arr, "q", (4,), lanes)
+    dispatch.check_operand(end, "end", (6,), lanes)
+    opts = dict(dtype=torch.int32, device=q_arr.device)
+    q1 = torch.empty((4, NLIMBS, lanes), **opts)
+    nq2 = torch.empty((4, NLIMBS, lanes), **opts)
+    st91 = torch.empty((6, NLIMBS, lanes), **opts)
+    EPILOGUE_POINTS(q_arr, end, q1, nq2, st91, lanes)
+    return q1, nq2, st91

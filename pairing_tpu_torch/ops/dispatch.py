@@ -97,6 +97,8 @@ KERNELS = {
         ("pow_ladder", "pt_pow_ladder"),
         ("pow_ladder_w4", "pt_pow_ladder_w4"),
         ("hard_chain", "pt_hard_chain"),
+        ("epilogue_points", "pt_epilogue_points"),
+        ("epilogue_lines", "pt_epilogue_lines"),
     )
 }
 

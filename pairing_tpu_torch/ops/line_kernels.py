@@ -10,6 +10,10 @@ a nonzero digit, its chord at ch[ch_rows[t]] (slots 2, 3, 5), the operands
 of kernel C. The kernel runs one thread per (line, lane); its chord table,
 (step, digit, row) for each step with a nonzero digit, is built once per
 schedule and device.
+
+``epilogue_lines`` runs the Miller loop's two epilogue chords, through end
+and Q1 and through end + Q1 and -Q2, on K's chord (``k_epilogue_lines``,
+``csrc/miller_epilogue.cu``): the operand ep [2, 6, NLIMBS, B] of kernel C.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from . import dispatch
 from .fq12_kernels import kfp2_view, kfp_view, kstack
 
 LINES = dispatch.KERNELS["lines"]
+EPILOGUE_LINES = dispatch.KERNELS["epilogue_lines"]
 
 
 def line_schedule(digits: Sequence[int], ch_rows: Sequence[int], n_ch: int) -> np.ndarray:
@@ -112,3 +117,35 @@ def lines(tops, dbls, zinv, pq, digits: Sequence[int], ch_rows: Sequence[int], n
     ch = torch.empty((n_ch, 6, F.NLIMBS, lanes), **opts)
     LINES(tops, dbls, zinv, pq, chords, n, chords.shape[0], tg, ch, lanes)
     return tg, ch
+
+
+def _chord_rows(state, zi, partner, px, py) -> torch.Tensor:
+    """Chord through the affine form of Jacobian rows [6, NLIMBS, B] (inverse
+    Z ``zi``) and the partner rows [4, NLIMBS, B], as line rows [6, NLIMBS, B]."""
+    x, y = affine(state, zi)
+    line = L.line_unequal(x, y, kfp2_view(partner[0:2]), kfp2_view(partner[2:4]), px, py)
+    return kstack([c for v in line for c in (v.c0, v.c1)])
+
+
+def epilogue_lines_plain(end, st91, zinv, p, q1, nq2):
+    """Plain PyTorch version of ``k_epilogue_lines``: the Miller loop's eager
+    epilogue lines."""
+    px, py = kfp_view(p[0]), kfp_view(p[1])
+    return torch.stack([_chord_rows(end, zinv[0], q1, px, py),
+                        _chord_rows(st91, zinv[1], nq2, px, py)])
+
+
+def epilogue_lines(end, st91, zinv, p, q1, nq2):
+    """ep [2, 6, NLIMBS, B]: the chord through affine(end) and q1 (slots 2,
+    3, 5), then through affine(st91) and nq2, evaluated at P. end, st91:
+    Jacobian rows [6, NLIMBS, B]; zinv [2, 2, NLIMBS, B] their inverse Z;
+    p [2, NLIMBS, B] the rows px, py; q1, nq2 [4, NLIMBS, B]."""
+    if not dispatch.on_cuda(end, st91, zinv, p, q1, nq2):
+        return epilogue_lines_plain(end, st91, zinv, p, q1, nq2)
+    lanes = end.shape[-1]
+    for t, name, lead in ((end, "end", (6,)), (st91, "st91", (6,)), (zinv, "zinv", (2, 2)),
+                          (p, "p", (2,)), (q1, "q1", (4,)), (nq2, "nq2", (4,))):
+        dispatch.check_operand(t, name, lead, lanes)
+    ep = torch.empty((2, 6, F.NLIMBS, lanes), dtype=torch.int32, device=end.device)
+    EPILOGUE_LINES(end, st91, zinv, p, q1, nq2, ep, lanes)
+    return ep

@@ -20,10 +20,14 @@ lane ``k * B + b``. Every phase runs in the batch-last kernel layout
             (kernel C), one shared square per step, the two epilogue lines
             fused in as trailing steps.
 
-Phases B, N and C work per lane, so they run unchanged over K * B lanes. As
-in the reference, the two single epilogue states (end + Q1 and the twisted
-Frobenius points) and their two lines stay plain tensor code. Each phase is
-a ``torch.profiler.record_function`` range named ``miller_loop.<phase>``;
+Phases B, N and C work per lane, so they run unchanged over K * B lanes. The
+epilogue (the twisted Frobenius points Q1 and -Q2 with end + Q1, then the
+lines through end and Q1 and through end + Q1 and -Q2), which the reference
+leaves to XLA, runs on CUDA tensors as two kernels of its own,
+``k_epilogue_points`` in N and ``k_epilogue_lines`` in C
+(``ops.curve_kernels.epilogue_points``, ``ops.line_kernels.epilogue_lines``);
+on CPU tensors their plain versions run the plain tensor code. Each phase
+is a ``torch.profiler.record_function`` range named ``miller_loop.<phase>``;
 N's and C's kernels and glue have sub-ranges of their own (N: ``.points``,
 ``.prefix``, ``.inverse``, ``.running``; C: ``.lines``, ``.epilogue``). The
 witness collection adds ``witness.affine_export`` (kernel K13).
@@ -43,7 +47,7 @@ from ..fields.fp import Fp
 from ..fields.fp2 import Fp2
 from ..fields.fp12 import Fq12
 from ..curves.g1 import G1
-from ..curves.g2 import G2, jac_cap, jac_mixed_add, neg_twisted_frobenius, twisted_frobenius
+from ..curves.g2 import G2
 from ..ops import curve_kernels as CK
 from ..ops import fp_kernels as FPK
 from ..ops import line_kernels as LK
@@ -52,7 +56,6 @@ from ..ops.fq12_kernels import from_kernel_layout, kfp2_view, kstack
 from ..ops.fq2_vm import affine_export
 from ..ops.fused_kernels import miller_f
 from ..utils.interop import map_limbs, reshape_points
-from . import lines
 
 # ---------------------------------------------------------------------------
 # Static schedule
@@ -86,14 +89,6 @@ def _flat_fp2(a: Fp2) -> Fp2:
     return Fp2(_flat_fp(a.c0), _flat_fp(a.c1))
 
 
-def _epilogue_line(rows: torch.Tensor, zi: torch.Tensor, partner: G2, px: Fp, py: Fp):
-    """Chord through the affine form of Jacobian rows [6, NLIMBS, B] (with
-    inverse Z ``zi``) and ``partner``, as line rows [6, NLIMBS, B]."""
-    x, y = LK.affine(rows, zi)
-    line = lines.line_unequal(x, y, partner.x, partner.y, px, py)
-    return kstack([c for v in line for c in (v.c0, v.c1)])
-
-
 def _miller_core(qs: G2, ps: G1, collect: bool = False):
     """Multi-Miller product over the leading pairs axis of [K, *inner]
     points. Returns (f as KF12 [12, NLIMBS, B], trace): the trace is None
@@ -113,10 +108,8 @@ def _miller_core(qs: G2, ps: G1, collect: bool = False):
     with record_function("miller_loop.N_normalize"):
         with record_function("miller_loop.N_normalize.points"):
             # the epilogue points (miller_loop_native.rs:183-188)
-            q1 = twisted_frobenius(qc)
-            nq2 = neg_twisted_frobenius(q1)
-            st91 = CK.jac_rows(jac_cap(jac_mixed_add(CK.jac_view(end), q1)))
-            z = torch.cat([tops[:, 4:6], dbls[:, 4:6], end[None, 4:6], st91[None, 4:6]])
+            q1, nq2, st91 = CK.epilogue_points(q_rows, end)
+        z = torch.cat([tops[:, 4:6], dbls[:, 4:6], end[None, 4:6], st91[None, 4:6]])
         with record_function("miller_loop.N_normalize.prefix"):
             prefix, total = NK.prefix_products(z)
         with record_function("miller_loop.N_normalize.inverse"):
@@ -130,8 +123,7 @@ def _miller_core(qs: G2, ps: G1, collect: bool = False):
             pq = kstack([px, py, qc.x.c0, qc.x.c1, qc.y.c0, qc.y.c1])
             tg, ch = LK.lines(tops, dbls, zinv, pq, STEP_DIGITS, CHORD_ROWS[:N_STEPS], N_ADDS)
         with record_function("miller_loop.C_lines.epilogue"):
-            ep = torch.stack([_epilogue_line(end, zinv[2 * N_STEPS], q1, px, py),
-                              _epilogue_line(st91, zinv[2 * N_STEPS + 1], nq2, px, py)])
+            ep = LK.epilogue_lines(end, st91, zinv[2 * N_STEPS:], pq[0:2], q1, nq2)
 
     with record_function("miller_loop.D_miller_f"):
         out = miller_f(tg, ch, ep, MILLER_FLAGS, CHORD_ROWS, n_pairs=kshape[0], collect=collect)
@@ -152,8 +144,8 @@ def _miller_core(qs: G2, ps: G1, collect: bool = False):
         "tangent_lines": _public_line(tg, kshape),
         "chord_lines": _public_line(ch, kshape),
         "epilogue_lines": (_public_line(ep[0], kshape), _public_line(ep[1], kshape)),
-        "q1": reshape_points(q1, kshape),
-        "neg_q2": reshape_points(nq2, kshape),
+        "q1": reshape_points(CK.g2_view(q1), kshape),
+        "neg_q2": reshape_points(CK.g2_view(nq2), kshape),
     }
     return f, trace
 

@@ -21,7 +21,7 @@ pytestmark = pytest.mark.cuda
 #: The kernels of ``pairing`` (one pair per lane), the main path.
 PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "fq12_slotwise",
                    "fp_pow_bits", "fq12_inv", "trajectory", "prefix_products",
-                   "running_inverse", "lines")
+                   "running_inverse", "lines", "epilogue_points", "epilogue_lines")
 
 
 @pytest.fixture(scope="module")
@@ -502,6 +502,76 @@ def test_lines_kernel_matches_plain(gen, lanes, schedule):
     got = LK.lines(tops, dbls, zinv, pq, digits, rows, n_ch)
     assert LK.LINES.launches == before + 1
     assert_same(got, LK.lines_plain(tops, dbls, zinv, pq, sched, n_ch))
+
+
+#: Lane counts of the epilogue kernels: one lane; 37, which cuts the
+#: points kernel's 16-lane blocks and the lines kernel's 128-lane ones; and
+#: 16,384 + 3.
+EPILOGUE_LANE_COUNTS = [1, 37, 16387]
+
+
+def _epilogue_operands(lanes, layout, gen):
+    """The epilogue's operands for ``lanes`` products: (capped Q rows, kernel
+    H's end state, inverse rows [2, 2], P rows [2]). The Q are seeded
+    multiples of the G2 generator, tiled; from three lanes on, the last two
+    are a point of the twist outside G2 and a point off the twist. ``k4``:
+    four pairs a product, flattened pair-major as ``multi_pairing`` does
+    (4 * lanes lanes)."""
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields import fp2 as F2
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import curve_kernels as CK
+    from pairing_tpu_torch.ops.fq12_kernels import kstack
+    from pairing_tpu_torch.pairing import miller_loop as ML
+    from pairing_tpu_torch.utils.interop import map_limbs, reshape_points
+
+    n = 4 * lanes if layout == "k4" else lanes
+    _, g2s = _seeded_points(32, 21)
+    special = [next(q for q in (o.g2_point_from_x((x0, 1)) for x0 in range(1, 200))
+                    if q is not None and not o.g2_in_subgroup(q)), ((3, 4), (5, 6))]
+    pool = pt.g2_from_ints(g2s + special, "cuda")
+    idx = torch.arange(n, device="cuda") % len(g2s)
+    if n >= 3:
+        idx[-2:] = torch.tensor([len(g2s), len(g2s) + 1], device="cuda")
+    q = map_limbs(pool, lambda t: t[idx])
+    if layout == "k4":
+        g1 = pt.g1_from_ints([(1, 2)], "cuda")
+        ps = map_limbs(g1, lambda t: t.expand(n, -1))
+        q = ML.flatten_pairs(reshape_points(q, (4, lanes)), reshape_points(ps, (4, lanes)))[0]
+    x, y = F2.cap(q.x), F2.cap(q.y)
+    q_rows = kstack([x.c0, x.c1, y.c0, y.c1])
+    end = CK.trajectory(q_rows, ML.STEP_DIGITS)[2]
+    return q_rows, end, rand_kf12((2, 2), n, gen), rand_kf12((2,), n, gen)
+
+
+@pytest.mark.parametrize("layout", ["flat", "k4"])
+@pytest.mark.parametrize("lanes", EPILOGUE_LANE_COUNTS)
+def test_epilogue_points_kernel_matches_plain(gen, lanes, layout):
+    """k_epilogue_points: q1, nq2 and end + q1 equal to the eager code on
+    canonical values, in the envelope, one launch a call."""
+    from pairing_tpu_torch.ops import curve_kernels as CK
+
+    q_rows, end, _, _ = _epilogue_operands(lanes, layout, gen)
+    before = CK.EPILOGUE_POINTS.launches
+    got = CK.epilogue_points(q_rows, end)
+    assert CK.EPILOGUE_POINTS.launches == before + 1
+    assert_same(got, CK.epilogue_points_plain(q_rows, end))
+
+
+@pytest.mark.parametrize("layout", ["flat", "k4"])
+@pytest.mark.parametrize("lanes", EPILOGUE_LANE_COUNTS)
+def test_epilogue_lines_kernel_matches_plain(gen, lanes, layout):
+    """k_epilogue_lines on the points kernel's outputs: ep equal to the
+    eager chords on canonical values, in the envelope, one launch a call."""
+    from pairing_tpu_torch.ops import curve_kernels as CK
+    from pairing_tpu_torch.ops import line_kernels as LK
+
+    q_rows, end, zinv, p = _epilogue_operands(lanes, layout, gen)
+    q1, nq2, st91 = CK.epilogue_points(q_rows, end)
+    before = LK.EPILOGUE_LINES.launches
+    got = LK.epilogue_lines(end, st91, zinv, p, q1, nq2)
+    assert LK.EPILOGUE_LINES.launches == before + 1
+    assert_same(got, LK.epilogue_lines_plain(end, st91, zinv, p, q1, nq2))
 
 
 def test_pairing_on_card_matches_oracle(gen):

@@ -19,11 +19,15 @@ a 2-chunk ``witness_stream``, each under the full profiler. Every kernel
 and every copy to or from pageable host memory must be launched inside a
 range of the program, and the pageable copies of each entry must number
 the synchronising operations that ``torch.cuda.set_sync_debug_mode("warn")``
-reports for it.
+reports for it. Each call of the Miller loop's ``miller_loop.N_normalize.points``
+and ``miller_loop.C_lines.epilogue`` launches its one epilogue kernel
+(``k_epilogue_points``, ``k_epilogue_lines``), no other kernel and no
+pageable copy.
 """
 
 import json
 import os
+import re
 import tempfile
 import warnings
 
@@ -267,3 +271,26 @@ def test_cuda_every_launch_lies_in_a_program_range(card, entry):
     outside = [e["name"][:60] for e in kernels + pageable if not in_program(e)]
     assert not outside, outside
     assert len(pageable) == syncs, (len(pageable), syncs)
+    if entry == "validate_inputs":
+        return
+    # each epilogue range: one launch, of its kernel; no pageable copy
+    for name, kernel in EPILOGUE.items():
+        calls = [(a, b) for n, a, b in spans if n == name]
+        assert calls, name
+        for a, b in calls:
+            inside = [e for e in kernels + pageable
+                      if a <= launch.get(e.get("args", {}).get("correlation"), -1) <= b]
+            names = [_kernel_name(e["name"]) for e in inside]
+            assert names == [kernel], (name, [e["name"][:60] for e in inside])
+
+
+#: the Miller loop's epilogue ranges and the one kernel each launches
+EPILOGUE = {"miller_loop.N_normalize.points": "k_epilogue_points",
+            "miller_loop.C_lines.epilogue": "k_epilogue_lines"}
+
+
+def _kernel_name(name: str):
+    """``k_*`` of one of the port's kernels in the trace (``void
+    pt::k_lines(...)``), else None."""
+    m = re.match(r"(?:void )?(?:pt::)?(k_\w+)", name)
+    return m.group(1) if m else None
