@@ -9,6 +9,9 @@ is K. Between the two public edges everything stays in the batch-last
 kernel layout. ``validate_inputs(p, q)`` is the batched mask of inputs the
 pairing is defined on. Each entry is a ``torch.profiler.record_function``
 range: ``pairing.pairing``, ``pairing.multi_pairing``, ``validate.inputs``.
+Inside the first two, ``pairing.flatten`` (``pairing`` only) holds the
+flattening of the public points and ``pairing.output`` the conversion of
+the result from the kernel layout to the public Fq12.
 """
 
 from __future__ import annotations
@@ -26,8 +29,11 @@ from .miller_loop import flatten_pairs, miller_loop_k, multi_miller_loop_k
 def pairing(p: G1, q: G2) -> Fq12:
     """e(P, Q) = final_exp(miller_loop(Q, P)); batched."""
     with record_function("pairing.pairing"):
-        qf, pf, bs = flatten_pairs(q, p)
-        return from_kernel_layout(final_exp_k(miller_loop_k(qf, pf)), bs)
+        with record_function("pairing.flatten"):
+            qf, pf, bs = flatten_pairs(q, p)
+        f = final_exp_k(miller_loop_k(qf, pf))
+        with record_function("pairing.output"):
+            return from_kernel_layout(f, bs)
 
 
 def multi_pairing(ps: G1, qs: G2) -> Fq12:
@@ -35,7 +41,9 @@ def multi_pairing(ps: G1, qs: G2) -> Fq12:
     squarings in the Miller loop and one final exponentiation; batched over
     the remaining axes."""
     with record_function("pairing.multi_pairing"):
-        return from_kernel_layout(final_exp_k(multi_miller_loop_k(qs, ps)), ps.batch_shape[1:])
+        f = final_exp_k(multi_miller_loop_k(qs, ps))
+        with record_function("pairing.output"):
+            return from_kernel_layout(f, ps.batch_shape[1:])
 
 
 def validate_inputs(p: G1, q: G2, subgroup_check: bool = True):

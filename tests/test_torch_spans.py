@@ -1,15 +1,16 @@
 """The port's ``torch.profiler.record_function`` ranges: which appear on
 each entry, and how they nest.
 
-On the CPU (one parametrised test): ``validate_inputs`` on one point pair,
-``multi_pairing`` with K = 2 and batch 1, and ``witness_stream`` with a
-cheap ``fn`` over 2 lanes in chunks of 1. Each runs under the profiler with
-only the ``record_function`` scope recorded (the plain versions of the
-kernels make hundreds of thousands of tensor operations, which a full
-profile would record one by one); every range of the entry's path must
-appear with the parent range it has in the program, and no other range.
-The CPU branch of the stream has no wait, so ``witness.stream.wait`` is
-asserted only on the card. About 20 s on two threads.
+On the CPU (one parametrised test): ``validate_inputs`` and ``pairing`` on
+one point pair, ``multi_pairing`` with K = 2 and batch 1, and
+``witness_stream`` with a cheap ``fn`` over 2 lanes in chunks of 1. Each
+runs under the profiler with only the ``record_function`` scope recorded
+(the plain versions of the kernels make hundreds of thousands of tensor
+operations, which a full profile would record one by one); every range of
+the entry's path must appear with the parent range it has in the program,
+and no other range. The CPU branch of the stream has no wait, so
+``witness.stream.wait`` is asserted only on the card. About 30 s on two
+threads.
 
 Marked ``cuda`` (skips without a card; from the repository root on a
 machine with the card, ``python -m pytest --noconftest
@@ -84,8 +85,14 @@ def _under(table: dict, entry: str) -> dict:
     return out
 
 
+#: each entry's own ranges around the phases: the flattening of the public
+#: points (``pairing`` only) and the conversion of the result to the public Fq12
+EDGES = {"pairing.pairing": ("pairing.flatten", "pairing.output"),
+         "pairing.multi_pairing": ("pairing.output",)}
+
+
 def pairing_path(entry: str) -> dict:
-    return _under({**MILLER, **FINAL_EXP}, entry)
+    return _under({**MILLER, **FINAL_EXP, **{name: "{entry}" for name in EDGES[entry]}}, entry)
 
 
 def witness_path() -> dict:
@@ -157,6 +164,11 @@ def _validate_case():
     return lambda: pt.validate_inputs(p, q), VALIDATE
 
 
+def _pairing_case():
+    p, q = _points(1, "cpu")
+    return lambda: pt.pairing(p, q), pairing_path("pairing.pairing")
+
+
 def _multi_pairing_case():
     p, q = _points(2, "cpu")
     ps, qs = reshape_points(p, (2, 1)), reshape_points(q, (2, 1))
@@ -172,8 +184,8 @@ def _stream_case():
     return run, {"witness.stream.copy_out": None, "witness.stream.handover": None}
 
 
-CPU_CASES = {"validate_inputs": _validate_case, "multi_pairing": _multi_pairing_case,
-             "witness_stream": _stream_case}
+CPU_CASES = {"validate_inputs": _validate_case, "pairing": _pairing_case,
+             "multi_pairing": _multi_pairing_case, "witness_stream": _stream_case}
 
 
 @pytest.mark.parametrize("case", sorted(CPU_CASES))
