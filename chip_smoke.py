@@ -20,7 +20,12 @@ toolkit (nvcc). It
      ladder and K13 the affine export at the witness path's shapes. Canonical
      values must be equal (tolerance zero: exact integer arithmetic) and
      every output limb in [0, 2^13 + 1], every value below 2p; prints both
-     times and the kernel's bound on this card;
+     times and the kernel's bound on this card. Then ``k_canonical``'s two
+     modes at 16384 and 65,536 lanes on a Groth16 verify call's shapes,
+     verdicts bit for bit and digits limb for limb against their plain
+     versions, timed from HBM and warm in the L2 against the bytes bound.
+     Every comparison of canonical values here uses ``canonical_plain``,
+     never the kernel under test;
   3. runs the main path, ``pairing_tpu_torch.pairing`` at batch 16384 with
      256 distinct seeded pairs tiled: all 256 distinct lanes must equal the
      port's pure-integer oracle, every tiled lane its original, and each of
@@ -48,9 +53,13 @@ toolkit (nvcc). It
   8. runs ``validate_inputs`` at 16384 lanes of the main path's pairs with
      four bad lanes at fixed positions (a Q on the twist outside G2, P =
      (5, 5), P = (0, 0), a Q off the twist): both masks, with and without
-     the subgroup check, must equal the oracle's lane for lane, and kernel
-     H's end-only mode (``trajectory_end``) must have launched; prints the
-     call's ms, the mode's time and bound and the peak device memory;
+     the subgroup check, must equal the oracle's lane for lane, kernel
+     H's end-only mode (``trajectory_end``) must have launched and
+     ``canonical_eq`` 6 times; a Groth16 verify call's compares on them
+     (``g1_on_curve`` on C and vk_x too, the accept ``fq12_eq``) launch
+     ``canonical_eq`` 9 times, with the plain route's mask and accept
+     bits; prints the call's ms, the mode's time and bound and the peak
+     device memory;
   9. runs ``parallel.runner.pairing_stream`` over 40,000 pairs (the main
      path's pairs tiled) in chunks of 16384 on the card, checkpointed into
      a temporary directory: two full chunks and a ragged tail, every lane
@@ -177,6 +186,10 @@ KERNEL_SOURCES = {
                         "no TPU kernel: XLA, pairing_tpu/pairing/miller_loop.py:269-277"),
     "epilogue_lines": ("pairing_tpu_torch/csrc/miller_epilogue.cu",
                        "no TPU kernel: XLA, pairing_tpu/pairing/miller_loop.py:340-341"),
+    "canonical": ("pairing_tpu_torch/csrc/canonical.cu",
+                  "no TPU kernel: XLA, pairing_tpu/fields/fp.py:445"),
+    "canonical_eq": ("pairing_tpu_torch/csrc/canonical.cu",
+                     "no TPU kernel: XLA, pairing_tpu/fields/fp.py:445/464/470"),
 }
 
 #: The kernels each path runs; each must launch in its path's run.
@@ -190,7 +203,15 @@ FUSED_KERNELS = PAIRING_KERNELS + ("hard_chain",)
 SPLIT_KERNELS = ("pow_ladder_w4", "fq12_inv", "fq12_mul", "fq12_cyc_sq", "fq12_slotwise")
 POW_KERNELS = ("fq12_sq", "fq12_mul", "fq12_inv")
 KLAYOUT_KERNELS = ("fq12_mul_sparse", "pow_ladder", "fq12_sq")
-VALIDATE_KERNELS = ("trajectory_end",)
+VALIDATE_KERNELS = ("trajectory_end", "canonical_eq")
+STREAM_KERNELS = PAIRING_KERNELS + ("canonical",)  # the digits of every chunk's export
+#: k_canonical's compare launches in one Groth16 verify call: g1_on_curve on
+#: A, C and vk_x, g2_on_curve on B, the subgroup compare's two fp_is_zero and
+#: two Fq2 equalities, the accept's fq12_eq
+GROTH16_COMPARES = 3 + 1 + 4 + 1
+#: Operand bytes a timing rotates through, three times the H100's 50 MB L2:
+#: each launch then reads its operands from HBM, as its bytes bound assumes
+L2_ROTATE_BYTES = 150e6
 STREAM_PAIRS = 40000  # two full chunks of BATCH and a ragged tail
 STREAM_LANES = 4 * BATCH  # witness_stream: four chunks of BATCH, eight of BATCH // 2
 LAUNCH_PROCESSES = 2  # launch --backend gloo --device cuda on the one card
@@ -745,6 +766,126 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
           f"{k15_ms / chain_graph_ms:.3f} x theirs", flush=True)
 
 
+def rotated_ms(sets, run) -> float:
+    """Device ms of ``run(s)`` a call, replayed from a CUDA graph that takes
+    each operand set of ``sets`` in turn, at least KERNEL_REPS calls."""
+    turns = -(-KERNEL_REPS // len(sets))
+    order = iter(sets * (turns + 1))  # one warm-up call, then the graph's
+    return graph_ms(lambda: run(next(order)), turns * len(sets))
+
+
+def canonical_kernel(results, bound, ptxas_log: str) -> None:
+    """k_canonical's two modes against their plain versions at BATCH and
+    WIDE lanes, at the shapes of a Groth16 verify call (``fp_eq`` on the
+    on-curve checks' sides, whose bounds pass 2p; ``fp_is_zero``; Fq2
+    equality; the accept's 12 pairs against ``fq12_one``'s expanded
+    constants; 12 pairs of distinct operands) and of the digits export:
+    verdicts bit for bit, digits limb for limb, one launch a call. Times
+    rotate through operand sets of L2_ROTATE_BYTES (from HBM, against the
+    bytes bound) and replay one set (warm in the L2) beside them."""
+    from pairing_tpu_torch.fields import fp as F
+    from pairing_tpu_torch.fields import fp12 as F12
+    from pairing_tpu_torch.ops import canon_kernels as CK
+    from pairing_tpu_torch.ops import fq12_kernels as FK
+    from pairing_tpu_torch.utils.bn254 import P
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 1)
+    for name in ("canonical", "canonical_eq"):
+        src, replaces = KERNEL_SOURCES[name]
+        results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": 0, "max_abs_err": 0, "library_ms": None,
+                         "launches_by_path": {}, "shapes": {}}
+        add_ptxas(results[name], ptxas_log, "k_canonical")
+
+    def copy(x):  # a fresh operand of x's layout; expanded constants stay shared
+        return x if x is None or x.limbs.stride(-2) == 0 else F.Fp(x.limbs.clone(), x.bound,
+                                                                   x.limb_bound)
+
+    def read_bytes(xs, lanes):
+        return sum(4 * F.NLIMBS * lanes for x in xs if x is not None and x.limbs.stride(-2))
+
+    for lanes in (BATCH, WIDE):
+        lane = torch.arange(lanes, device=DEVICE)
+
+        def rand():
+            return F.Fp(FK.random_kf12((), lanes, gen).t().contiguous(), 2 * P, F.SETTLED)
+
+        def partner(a):  # a's value in another form on even lanes, a + 1 on odd ones
+            c = rand()
+            return F.fp_select(lane % 2 == 0, F.fp_sub(F.fp_add(a, c), c),
+                               F.fp_add(a, F.fp_const_mont(1, (lanes,), DEVICE)))
+
+        x, y = rand(), rand()
+        y2 = F.mont_mul(y, y)
+        rhs = F.fp_add(F.mont_mul(F.mont_mul(x, x), x), F.fp_const_mont(3, (lanes,), DEVICE))
+        one = F12.fq12_one((lanes,), DEVICE)
+        ones = [c for s in one.s for c in (s.c0, s.c1)]
+        prod = [F.fp_select(lane % 2 == 0, partner(c), rand()) for c in ones]
+        dense = [rand() for _ in range(12)]
+        compares = {
+            "g1_on_curve": [(y2, partner(y2))],
+            "g2_on_curve": [(y2, partner(y2)), (rhs, partner(rhs))],
+            "is_zero": [(F.fp_sub(x, partner(x)), None)],
+            "accept": list(zip(prod, ones)),
+            "dense": [(a, partner(a)) for a in dense],
+        }
+        for shape, pairs in compares.items():
+            before = CK.CANONICAL_EQ.launches
+            got = CK.all_equal(pairs)
+            check(CK.CANONICAL_EQ.launches == before + 1, f"canonical_eq: {shape} not one launch")
+            check(torch.equal(got, CK.all_equal_plain(pairs)),
+                  f"canonical_eq differs from all_equal_plain: {shape} at {lanes} lanes")
+            check(got.tolist() == [i % 2 == 0 for i in range(lanes)],
+                  f"canonical_eq: {shape} at {lanes} lanes not equal on even lanes alone")
+        digits = {"lazy_sum": F.fp_add(x, y), "export": F.from_mont(prod[0])}
+        for shape, a in digits.items():
+            before = CK.CANONICAL.launches
+            got = CK.canonical(a).limbs
+            check(CK.CANONICAL.launches == before + 1, f"canonical: {shape} not one launch")
+            check(torch.equal(got, F.canonical_plain(a).limbs),
+                  f"canonical differs from canonical_plain: {shape} at {lanes} lanes")
+        print(f"k_canonical at {lanes} lanes: canonical_eq equals all_equal_plain bit for bit on "
+              f"{list(compares)}, canonical equals canonical_plain limb for limb on "
+              f"{list(digits)}", flush=True)
+
+        timed = {"canonical_eq": {s: compares[s] for s in ("accept", "dense", "g1_on_curve")},
+                 "canonical": {"lazy_sum": [(digits["lazy_sum"], None)]}}
+        for name, shapes in timed.items():
+            for shape, pairs in shapes.items():
+                ops = [o for pair in pairs for o in pair]
+                n_bytes = read_bytes(ops, lanes) + (lanes if name == "canonical_eq"
+                                                    else 4 * F.NLIMBS * lanes)
+                sets = [pairs] + [[(copy(a), copy(b)) for a, b in pairs]
+                                  for _ in range(int(-(-L2_ROTATE_BYTES // n_bytes)) - 1)]
+                if name == "canonical_eq":
+                    run, plain = CK.all_equal, CK.all_equal_plain
+                else:
+                    run, plain = (lambda s: CK.canonical(s[0][0]),
+                                  lambda s: F.canonical_plain(s[0][0]))
+                run(pairs)
+                ms, warm = rotated_ms(sets, run), graph_ms(lambda: run(pairs), KERNEL_REPS)
+                plain_ms = timed_ms(lambda: plain(pairs), 1)
+                bound_ms, bound_by = bound(0, n_bytes)
+                results[name]["shapes"][f"{shape}@{lanes}"] = {
+                    "pairs": len(pairs), "ms": ms, "ms_l2_warm": warm, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bytes": n_bytes, "sets": len(sets)}
+                print(f"{name} {shape} ({len(pairs)} pairs) at {lanes} lanes: {ms:.5f} ms from "
+                      f"HBM ({len(sets)} operand sets in turn), {warm:.5f} ms warm in the L2; "
+                      f"bound {bound_ms:.5f} ms ({n_bytes} B, {bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.3f} ms", flush=True)
+                del sets
+        del compares, digits, prod, dense, one, ones, x, y, y2, rhs
+        torch.cuda.empty_cache()
+
+    for name, shape in (("canonical_eq", "accept"), ("canonical", "lazy_sum")):
+        entry = results[name]
+        head, wide = entry["shapes"][f"{shape}@{BATCH}"], entry["shapes"][f"{shape}@{WIDE}"]
+        entry.update(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                     bound_by="bytes", ms_65536_lanes=wide["ms"],
+                     bound_ms_65536_lanes=wide["bound_ms"])
+
+
 def seeded_pairs():
     from pairing_tpu_torch.oracle import native as o
     from pairing_tpu_torch.utils import bn254 as c
@@ -792,13 +933,16 @@ def run_path(name, kernels, fn, results):
 
 
 def canonical(out):
-    from pairing_tpu_torch.fields.fp12 import fq12_to_canonical_limbs
+    """``fq12_to_canonical_limbs`` in plain PyTorch (``canonical_plain``), so
+    that no check runs through ``k_canonical``: int32 [*batch, 12, 21]."""
+    from pairing_tpu_torch.fields import fp as F
 
-    for s in out.s:
-        for comp in (s.c0, s.c1):
-            check(int(comp.limbs.min()) >= 0 and int(comp.limbs.max()) <= 8193,
-                  "output limbs outside [0, 2^13 + 1]")
-    return fq12_to_canonical_limbs(out)
+    comps = [s.c0 for s in out.s] + [s.c1 for s in out.s]
+    for comp in comps:
+        check(int(comp.limbs.min()) >= 0 and int(comp.limbs.max()) <= 8193,
+              "output limbs outside [0, 2^13 + 1]")
+    digits = [F.canonical_plain(F.from_mont(c)).limbs for c in comps]
+    return torch.stack(torch.broadcast_tensors(*digits), dim=-2)
 
 
 def main_path(results, card: str, g1s, g2s):
@@ -1042,9 +1186,15 @@ def non_subgroup_point():
 def validation_path(results, card: str, g1s, g2s):
     """``validate_inputs`` over the main path's pairs tiled to BATCH lanes,
     with bad lanes at fixed positions, lane for lane against the oracle's
-    masks, with and without the subgroup check."""
+    masks, with and without the subgroup check; then a Groth16 verify
+    call's compares on them, which launch ``canonical_eq`` GROTH16_COMPARES
+    times."""
     import pairing_tpu_torch as pt
+    from pairing_tpu_torch.curves.g1 import g1_on_curve
+    from pairing_tpu_torch.fields import fp12 as F12
     from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops.canon_kernels import all_equal_plain
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_view, random_kf12
     from pairing_tpu_torch.utils import bn254 as c
 
     g1 = [g1s[i % UNIQUE] for i in range(BATCH)]
@@ -1078,6 +1228,10 @@ def validation_path(results, card: str, g1s, g2s):
     full, first_s = run_path("validate_inputs", VALIDATE_KERNELS,
                              lambda: pt.validate_inputs(p, q), results)
     peak = torch.cuda.max_memory_allocated()
+    n_compares = results["canonical_eq"]["launches_by_path"]["validate_inputs"]
+    check(n_compares == GROTH16_COMPARES - 3,
+          f"validate_inputs launched canonical_eq {n_compares} times, want "
+          f"{GROTH16_COMPARES - 3} (g1_on_curve, g2_on_curve, the subgroup compare's four)")
     fast = pt.validate_inputs(p, q, subgroup_check=False)
     for name, got in (("subgroup_check", full), ("no_subgroup_check", fast)):
         check(got.dtype == torch.bool and tuple(got.shape) == (BATCH,),
@@ -1091,10 +1245,35 @@ def validation_path(results, card: str, g1s, g2s):
         pt.validate_inputs(p, q)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / runs * 1e3
+
+    # a Groth16 verify call's compares: validate_inputs on (A, B), g1_on_curve
+    # on C and vk_x, the accept fq12_eq(prod, one) with even lanes equal to one
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 2)
+    one = F12.fq12_one((BATCH,), DEVICE)
+    even = torch.arange(BATCH, device=DEVICE) % 2 == 0
+    prod = F12.fq12_select(even, F12.fq12_mul(one, one), kf12_view(random_kf12((12,), BATCH, gen)))
+
+    def verify_call():
+        valid = pt.validate_inputs(p, q) & g1_on_curve(p) & g1_on_curve(p)
+        return valid, valid & F12.fq12_eq(prod, one)
+
+    (valid, accept), _ = run_path("groth16_shaped", ("trajectory_end", "canonical_eq"),
+                                  verify_call, results)
+    n_compares = results["canonical_eq"]["launches_by_path"]["groth16_shaped"]
+    check(n_compares == GROTH16_COMPARES, f"a Groth16-shaped call launched canonical_eq "
+          f"{n_compares} times, want {GROTH16_COMPARES}")
+    ones = [(x, y) for s, t in zip(prod.s, one.s) for x, y in ((s.c0, t.c0), (s.c1, t.c1))]
+    check(valid.tolist() == want["subgroup_check"]
+          and torch.equal(accept, valid & all_equal_plain(ones))
+          and accept.tolist() == [v and i % 2 == 0 for i, v in enumerate(want["subgroup_check"])],
+          "the Groth16-shaped call's mask or accept bits differ from the plain route's")
     entry = results["trajectory_end"]
     print(f"validation path: validate_inputs at {BATCH} lanes equals the oracle's masks lane for "
           f"lane with and without the subgroup check (bad lanes: {bad}; oracle {oracle_s:.1f} s); "
-          f"{ms:.3f} ms per call ({runs} calls; first call {first_s:.3f} s), kernel H's end-only "
+          f"{ms:.3f} ms per call ({runs} calls; first call {first_s:.3f} s), canonical_eq "
+          f"{GROTH16_COMPARES - 3} launches a call ({GROTH16_COMPARES} in a Groth16-shaped call, "
+          f"whose mask and accept bits equal the plain route's), kernel H's end-only "
           f"mode {entry['ms']:.4f} ms of it, bound {entry['bound_ms']:.4f} ms "
           f"({entry['bound_by']}); peak device memory {peak / 2**30:.3f} GiB, "
           f"{(peak - held_before) / 2**20:.1f} MiB above the {held_before / 2**30:.3f} GiB held "
@@ -1116,7 +1295,7 @@ def stream_path(results, card: str, g1s, g2s, want):
     want_limbs = np.asarray([[int_to_limbs(v) for v in row] for row in want])  # [UNIQUE, 12, 21]
     with tempfile.TemporaryDirectory() as ckpt:
         cfg = PairingConfig(device=DEVICE, chunk_size=BATCH, checkpoint_dir=ckpt)
-        chunks, seconds = run_path("pairing_stream", PAIRING_KERNELS,
+        chunks, seconds = run_path("pairing_stream", STREAM_KERNELS,
                                    lambda: list(pairing_stream(g1, g2, cfg)), results)
         sizes = [len(ch) for ch in chunks]
         check(sizes == [BATCH, BATCH, n - 2 * BATCH], f"pairing_stream chunk sizes {sizes}")
@@ -1443,7 +1622,9 @@ def main() -> int:
 
     library_sass(info.path)
     results: dict = {}
-    kernel_phases(results, Bounds(), info.ptxas)
+    bound = Bounds()
+    kernel_phases(results, bound, info.ptxas)
+    canonical_kernel(results, bound, info.ptxas)
     torch.cuda.empty_cache()
     g1s, g2s = seeded_pairs()
     p, q, canon, want = main_path(results, card, g1s, g2s)
@@ -1468,7 +1649,8 @@ def main() -> int:
                 exp_bits="pairing_witness", affine_export="pairing_witness",
                 hard_chain="pairing_fused_chain", pow_ladder_w4="split_final_exp",
                 fq12_sq="fq12_pow", fq12_mul_sparse="kernel_layout_ops",
-                pow_ladder="kernel_layout_ops", trajectory_end="validate_inputs")
+                pow_ladder="kernel_layout_ops", trajectory_end="validate_inputs",
+                canonical="pairing_stream", canonical_eq="validate_inputs")
     for name, r in results.items():
         r["launches"] = r["launches_by_path"][home[name]]
     print(json.dumps({"kernels": [results[n] for n in KERNEL_SOURCES]}))

@@ -376,7 +376,17 @@ def weak_reduce(a: Fp) -> Fp:
 
 
 def canonical(a: Fp) -> Fp:
-    """Fully reduced representative in [0, p), canonical digits."""
+    """Fully reduced representative in [0, p), canonical digits: one launch
+    of ``k_canonical`` on CUDA tensors, :func:`canonical_plain` on CPU ones
+    (``ops.canon_kernels``)."""
+    from ..ops.canon_kernels import canonical as kcanonical
+
+    return kcanonical(a)
+
+
+def canonical_plain(a: Fp) -> Fp:
+    """Plain PyTorch version of :func:`canonical`: weak reductions down to
+    2p, then an exact carry and one conditional subtraction of p."""
     while a.bound > 2 * P:
         a = weak_reduce(a)
     digits, _ = _ripple_carry(a.limbs)  # carry-out is zero: bound < 2p < R
@@ -393,13 +403,17 @@ def fp_select(mask: torch.Tensor, a: Fp, b: Fp) -> Fp:
 
 def fp_eq(a: Fp, b: Fp) -> torch.Tensor:
     """Exact equality mod p (canonicalizes both sides): bool [...]. Two
-    representatives of one value below 2p may differ by p."""
-    ca, cb = canonical(a), canonical(b)
-    return (ca.limbs == cb.limbs).all(dim=-1)
+    representatives of one value below 2p may differ by p. One launch of
+    ``k_canonical``'s compare mode on CUDA tensors (``ops.canon_kernels``)."""
+    from ..ops.canon_kernels import all_equal
+
+    return all_equal([(a, b)])
 
 
 def fp_is_zero(a: Fp) -> torch.Tensor:
-    return (canonical(a).limbs == 0).all(dim=-1)
+    from ..ops.canon_kernels import all_equal
+
+    return all_equal([(a, None)])
 
 
 def _cap_2p(a: Fp) -> Fp:

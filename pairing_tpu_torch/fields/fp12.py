@@ -116,12 +116,11 @@ def fq12_select(mask, a: Fq12, b: Fq12) -> Fq12:
 
 
 def fq12_eq(a: Fq12, b: Fq12):
-    """Equality mod p of every coefficient: bool [...]."""
-    out = None
-    for x, y in zip(a.s, b.s):
-        e = F2.eq(x, y)
-        out = e if out is None else out & e
-    return out
+    """Equality mod p of every coefficient: bool [...]; one launch of
+    ``k_canonical``'s compare mode (12 pairs) on CUDA tensors."""
+    from ..ops.canon_kernels import all_equal
+
+    return all_equal([pair for x, y in zip(a.s, b.s) for pair in ((x.c0, y.c0), (x.c1, y.c1))])
 
 
 # ---------------------------------------------------------------------------

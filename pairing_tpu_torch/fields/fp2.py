@@ -131,8 +131,11 @@ def select(mask, a: Fp2, b: Fp2) -> Fp2:
 
 
 def eq(a: Fp2, b: Fp2):
-    """Equality mod p of both components: bool [...]."""
-    return F.fp_eq(a.c0, b.c0) & F.fp_eq(a.c1, b.c1)
+    """Equality mod p of both components: bool [...]; one launch of
+    ``k_canonical``'s compare mode on CUDA tensors."""
+    from ..ops.canon_kernels import all_equal
+
+    return all_equal([(a.c0, b.c0), (a.c1, b.c1)])
 
 
 def zero(batch_shape: Tuple[int, ...], device) -> Fp2:

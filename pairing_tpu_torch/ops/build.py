@@ -58,6 +58,7 @@ ENTRY_POINTS = {
     "pt_hard_chain": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P),
     "pt_epilogue_points": (_P, _P, _P, _P, _P, _I, _P),
     "pt_epilogue_lines": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "pt_canonical": (_P, _I, _P, _P, _I, _P),
 }
 
 

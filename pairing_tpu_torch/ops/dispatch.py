@@ -72,7 +72,8 @@ class Kernel:
 #: collection, ``miller_f_multi`` several pairs per product,
 #: ``miller_f_collect`` any launch that writes the per-step accumulator;
 #: kernel H's ``trajectory`` stores every loop top and post-double,
-#: ``trajectory_end`` the end state alone.
+#: ``trajectory_end`` the end state alone; ``k_canonical``'s ``canonical``
+#: writes canonical digits, ``canonical_eq`` compares pairs of values.
 KERNELS = {
     name: Kernel(name, entry)
     for name, entry in (
@@ -99,6 +100,8 @@ KERNELS = {
         ("hard_chain", "pt_hard_chain"),
         ("epilogue_points", "pt_epilogue_points"),
         ("epilogue_lines", "pt_epilogue_lines"),
+        ("canonical", "pt_canonical"),
+        ("canonical_eq", "pt_canonical"),
     )
 }
 

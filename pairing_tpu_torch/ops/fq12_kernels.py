@@ -78,9 +78,11 @@ def to_kernel_layout(a: Fq12) -> Tuple[torch.Tensor, tuple]:
 
 def kf12_canonical(arr: torch.Tensor) -> torch.Tensor:
     """Canonical digits (value mod p, still Montgomery) of KF12 limbs, for
-    exact comparison of two representatives. Works on [..., NLIMBS, B]."""
+    exact comparison of two representatives. Works on [..., NLIMBS, B].
+    Plain PyTorch (``F.canonical_plain``) on every device, so that checks of
+    a kernel against its plain version never run through ``k_canonical``."""
     limbs = arr.transpose(-1, -2)
-    return F.canonical(Fp(limbs, 2 * P, F.SETTLED)).limbs.transpose(-1, -2)
+    return F.canonical_plain(Fp(limbs, 2 * P, F.SETTLED)).limbs.transpose(-1, -2)
 
 
 def kf12_in_envelope(arr: torch.Tensor) -> bool:

@@ -574,6 +574,178 @@ def test_epilogue_lines_kernel_matches_plain(gen, lanes, layout):
     assert_same(got, LK.epilogue_lines_plain(end, st91, zinv, p, q1, nq2))
 
 
+#: k_canonical's lane counts: one lane; 33 and 257, which cut its blocks of
+#: 32 lanes (5 to 24 pairs), 128 (2 pairs) and 256 (one pair, and the digits
+#: mode); the Groth16 batch and four times it.
+CANONICAL_LANE_COUNTS = [1, 33, 257, 16384, 65536]
+
+
+def _canon_forms(a, gen):
+    """(the value of ``a`` in another representation, a + c - c; a + 1)."""
+    from pairing_tpu_torch.fields import fp as F
+    from pairing_tpu_torch.utils.bn254 import P
+
+    lanes = a.limbs.shape[0]
+    c = F.Fp(rand_kf12((), lanes, gen).t().contiguous(), 2 * P, F.SETTLED)
+    return F.fp_sub(F.fp_add(a, c), c), F.fp_add(a, F.fp_const_mont(1, (lanes,), "cuda"))
+
+
+@pytest.mark.parametrize("lanes", CANONICAL_LANE_COUNTS)
+def test_canonical_kernel_matches_plain(gen, lanes):
+    """k_canonical's digits mode limb for limb and its compare mode bit for
+    bit against their plain versions, on every family of
+    ``canon_edges.edge_operands`` (0, p - 1, p, 2p - 1, values in [p, 2p),
+    lazy sums with limbs far above 2^13 + 1, bounds up to 20 subtraction
+    steps, fp_sub's strided outputs, negative limbs); one launch a call, no synchronising operation; then 12
+    pairs where lane i differs in pair i % 13 alone."""
+    from canon_edges import edge_operands
+
+    from pairing_tpu_torch.fields import fp as F
+    from pairing_tpu_torch.ops import canon_kernels as CK
+
+    ops = edge_operands(lanes, gen)
+    lane = torch.arange(lanes, device="cuda")
+    for name, a in ops.items():
+        same, other = _canon_forms(a, gen)
+        b = F.fp_select(lane % 2 == 0, same, other)  # equal on even lanes only
+        cases = ([(a, b)], [(a, None)], [(b, a), (a, None)], [(a, b), (b, b), (a, same)])
+        before = (CK.CANONICAL.launches, CK.CANONICAL_EQ.launches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            digits = CK.canonical(a)
+            verdicts = [CK.all_equal(pairs) for pairs in cases]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (CK.CANONICAL.launches, CK.CANONICAL_EQ.launches) == (
+            before[0] + 1, before[1] + len(cases))
+        assert torch.equal(digits.limbs, F.canonical_plain(a).limbs), name
+        for pairs, got in zip(cases, verdicts):
+            assert got.dtype == torch.bool and torch.equal(got, CK.all_equal_plain(pairs)), name
+        assert verdicts[0].tolist() == [i % 2 == 0 for i in range(lanes)], name
+    pairs = []
+    for j, a in enumerate((list(ops.values()) * 2)[:12]):
+        same, other = _canon_forms(a, gen)
+        pairs.append((a, F.fp_select(lane % 13 != j, same, other)))
+    got = CK.all_equal(pairs)
+    assert torch.equal(got, CK.all_equal_plain(pairs))
+    assert got.tolist() == [i % 13 == 12 for i in range(lanes)]
+
+
+@pytest.mark.parametrize("lanes", [33, 16384])
+def test_canonical_kernel_operand_layouts(gen, lanes):
+    """Operands read in place: expanded constants (row stride 0, as
+    ``fp_const`` and ``fq12_one`` make them), transposed views of
+    the kernel layout (row stride 1), a 0-d constant broadcast over the
+    batch; operands broadcast against each other ([m, 1] against [1, n]);
+    24 pairs in one launch and 25 refused. Equal to the plain versions."""
+    from pairing_tpu_torch.fields import fp as F
+    from pairing_tpu_torch.fields import fp12 as F12
+    from pairing_tpu_torch.ops import canon_kernels as CK
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_view
+    from pairing_tpu_torch.utils.bn254 import P
+
+    f = kf12_view(rand_kf12((12,), lanes, gen))
+    one = F12.fq12_one((lanes,), "cuda")
+    values = (0, 1, P - 1, F.R_MOD_P)
+    consts = [F.fp_const(v, (lanes,), "cuda") for v in values]
+    comps = [x for s in f.s for x in (s.c0, s.c1)]
+    assert CK.operand_strides(comps[0].limbs, (lanes,)) == (1, lanes)
+    assert CK.operand_strides(one.s[0].c0.limbs, (lanes,)) == (0, 1)
+    cases = [[(x, y) for s, t in zip(f.s, one.s) for x, y in ((s.c0, t.c0), (s.c1, t.c1))],
+             [(c, None) for c in consts], [(comps[3], c) for c in consts],
+             [(c, F.fp_const(v, (), "cuda")) for c, v in zip(consts, values)],
+             [(x, x) for x in comps] + [(x, None) for x in comps]]
+    for pairs in cases:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = CK.all_equal(pairs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(got, CK.all_equal_plain(pairs))
+    assert CK.all_equal(cases[3]).all() and not CK.all_equal(cases[0]).any()
+    assert F12.fq12_eq(one, F12.fq12_one((lanes,), "cuda")).all()
+    row = F.Fp(comps[0].limbs[:8].unsqueeze(0), 2 * P, F.SETTLED)  # [1, 8]
+    col = F.Fp(comps[0].limbs[:6].unsqueeze(1), 2 * P, F.SETTLED)  # [6, 1]
+    zero = F.fp_const(0, (), "cuda")
+    for pairs in ([(row, col)], [(col, row), (row, None)], [(row, zero), (col, zero)]):
+        got = CK.all_equal(pairs)
+        assert got.shape == (6, 8) and torch.equal(got, CK.all_equal_plain(pairs))
+    assert CK.all_equal([(row, col)]).diagonal().all()
+    with pytest.raises(ValueError):
+        CK.all_equal([(comps[0], None)] * 25)
+
+
+def _groth16_batch(n, seed):
+    """n proofs of one made-up verifying key, as points of the oracle: each
+    satisfies e(-A, B) e(alpha, beta) e(vk_x, gamma) e(C, delta) = 1, but lane
+    3's C is moved by G1 (valid, not accepted) and lane 5's B lies on the
+    twist outside G2 (not valid). Returns (A, B, C, vk_x, (alpha, beta, gamma,
+    delta))."""
+    from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.utils import bn254 as c
+
+    rng = np.random.default_rng(seed)
+    r, g1, g2 = c.R_SCALAR, c.G1_GEN, (c.G2_GEN_X, c.G2_GEN_Y)
+
+    def k():
+        return int.from_bytes(rng.bytes(32), "little") % (r - 1) + 1
+
+    al, be, ga, de = k(), k(), k(), k()
+    key = (o.g1_mul(g1, al), o.g2_mul(g2, be), o.g2_mul(g2, ga), o.g2_mul(g2, de))
+    a_s, b_s, c_s, x_s = [], [], [], []
+    for _ in range(n):
+        a, x, cc = k(), k(), k()
+        a_s.append(o.g1_mul(g1, a))
+        b_s.append(o.g2_mul(g2, (al * be + x * ga + cc * de) * pow(a, -1, r) % r))
+        c_s.append(o.g1_mul(g1, cc))
+        x_s.append(o.g1_mul(g1, x))
+    c_s[3] = o.g1_add(c_s[3], g1)
+    b_s[5] = next(q for q in (o.g2_point_from_x((x0, 1)) for x0 in range(1, 200))
+                  if q is not None and not o.g2_in_subgroup(q))
+    return a_s, b_s, c_s, x_s, key
+
+
+def test_groth16_shaped_call_on_card_matches_cpu_route(gen):
+    """A Groth16 verify call as the benchmark makes it, on 16 proofs:
+    validate_inputs on (A, B), g1_on_curve on C and vk_x, multi_pairing over
+    the four pairs, then fq12_eq against one. Mask and accept bits equal the CPU route's (the
+    plain versions; the accept on the card's product) and the expected
+    ones; the call launches canonical_eq 9 times (3 + 1 + 4 + 1) and the
+    digits mode never."""
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.fields.fp12 import Fq12, fq12_eq, fq12_one
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.utils.bn254 import P
+    from pairing_tpu_torch.utils.interop import map_limbs, reshape_points
+
+    n = 16
+    a_s, b_s, c_s, x_s, (al, be, ga, de) = _groth16_batch(n, 23)
+    neg_a = [(x, (-y) % P) for x, y in a_s]
+
+    def call(dev):
+        a, b = pt.g1_from_ints(a_s, dev), pt.g2_from_ints(b_s, dev)
+        c, x = pt.g1_from_ints(c_s, dev), pt.g1_from_ints(x_s, dev)
+        ps = reshape_points(pt.g1_from_ints(neg_a + [al] * n + x_s + c_s, dev), (4, n))
+        qs = reshape_points(pt.g2_from_ints(b_s + [be] * n + [ga] * n + [de] * n, dev), (4, n))
+        one = fq12_one((n,), dev)
+        dispatch.reset_launch_counts()
+        valid = pt.validate_inputs(a, b) & pt.g1_on_curve(c) & pt.g1_on_curve(x)
+        prod = pt.multi_pairing(ps, qs) if dev == "cuda" else None
+        accept = valid & fq12_eq(prod, one) if dev == "cuda" else None
+        return valid, prod, accept, dispatch.launch_counts()
+
+    valid, prod, accept, counts = call("cuda")
+    assert counts["canonical_eq"] == 9 and counts["canonical"] == 0, counts
+    want_valid = [i != 5 for i in range(n)]
+    assert valid.tolist() == want_valid
+    assert accept.tolist() == [i not in (3, 5) for i in range(n)]
+    cpu_valid, _, _, cpu_counts = call("cpu")
+    assert cpu_valid.tolist() == want_valid and set(cpu_counts.values()) == {0}
+    prod_cpu = map_limbs(prod, lambda t: t.cpu())
+    assert isinstance(prod_cpu, Fq12)
+    assert (cpu_valid & fq12_eq(prod_cpu, fq12_one((n,), "cpu"))).tolist() == accept.tolist()
+
+
 def test_pairing_on_card_matches_oracle(gen):
     import pairing_tpu_torch as pt
     from pairing_tpu_torch.oracle import native as o
@@ -950,7 +1122,6 @@ def nccl_world1(gen):
 @pytest.mark.parametrize("name", ["fq12_all_reduce_mul", "fq12_reduce_mul_psum_style"])
 def test_collectives_world1_over_nccl(gen, nccl_world1, name):
     import pairing_tpu_torch as pt
-    from pairing_tpu_torch.fields.fp12 import fq12_to_canonical_limbs
     from pairing_tpu_torch.parallel import collectives
     from pairing_tpu_torch.utils import bn254 as c
 
@@ -960,7 +1131,7 @@ def test_collectives_world1_over_nccl(gen, nccl_world1, name):
     f = pt.fq12_from_int_coeffs(coeffs, "cuda")
     out = getattr(collectives, name)(f)
     assert out.device.type == "cuda"
-    assert torch.equal(fq12_to_canonical_limbs(out), fq12_to_canonical_limbs(f))
+    assert pt.fq12_to_int_coeffs(out) == coeffs
 
 
 def test_mesh_entry_points_world1_over_nccl(gen, nccl_world1):
