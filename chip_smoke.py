@@ -25,7 +25,13 @@ toolkit (nvcc). It
      verdicts bit for bit and digits limb for limb against their plain
      versions, timed from HBM and warm in the L2 against the bytes bound.
      Every comparison of canonical values here uses ``canonical_plain``,
-     never the kernel under test;
+     never the kernel under test. After the seeded pairs are made,
+     ``k_validate``'s three modes (the G1 and G2 curve equations, the G2
+     subgroup compare on kernel H's end state) at 16384 and 65,536 lanes
+     with bad lanes and x + p representatives: verdicts bit for bit against
+     their plain versions on CPU copies and the oracle's, one launch each
+     and no copy from the host, timed from HBM and warm in the L2 against
+     their bounds;
   3. runs the main path, ``pairing_tpu_torch.pairing`` at batch 16384 with
      256 distinct seeded pairs tiled: all 256 distinct lanes must equal the
      port's pure-integer oracle, every tiled lane its original, and each of
@@ -54,12 +60,12 @@ toolkit (nvcc). It
      four bad lanes at fixed positions (a Q on the twist outside G2, P =
      (5, 5), P = (0, 0), a Q off the twist): both masks, with and without
      the subgroup check, must equal the oracle's lane for lane, kernel
-     H's end-only mode (``trajectory_end``) must have launched and
-     ``canonical_eq`` 6 times; a Groth16 verify call's compares on them
-     (``g1_on_curve`` on C and vk_x too, the accept ``fq12_eq``) launch
-     ``canonical_eq`` 9 times, with the plain route's mask and accept
-     bits; prints the call's ms, the mode's time and bound and the peak
-     device memory;
+     H's end-only mode (``trajectory_end``) and each ``k_validate`` mode
+     must have launched once and ``canonical_eq`` never; a Groth16 verify
+     call's checks on them (``g1_on_curve`` on C and vk_x too, the accept
+     ``fq12_eq``) launch ``g1_on_curve`` 3 times and ``canonical_eq`` once,
+     with the plain route's mask and accept bits; prints the call's ms, the
+     mode's time and bound and the peak device memory;
   9. runs ``parallel.runner.pairing_stream`` over 40,000 pairs (the main
      path's pairs tiled) in chunks of 16384 on the card, checkpointed into
      a temporary directory: two full chunks and a ragged tail, every lane
@@ -190,6 +196,12 @@ KERNEL_SOURCES = {
                   "no TPU kernel: XLA, pairing_tpu/fields/fp.py:445"),
     "canonical_eq": ("pairing_tpu_torch/csrc/canonical.cu",
                      "no TPU kernel: XLA, pairing_tpu/fields/fp.py:445/464/470"),
+    "g1_on_curve": ("pairing_tpu_torch/csrc/validate.cu",
+                    "no TPU kernel: XLA, pairing_tpu/curves/g1.py:56"),
+    "g2_on_curve": ("pairing_tpu_torch/csrc/validate.cu",
+                    "no TPU kernel: XLA, pairing_tpu/curves/g2.py:89"),
+    "g2_subgroup_compare": ("pairing_tpu_torch/csrc/validate.cu",
+                            "no TPU kernel: XLA, pairing_tpu/curves/g2.py:211"),
 }
 
 #: The kernels each path runs; each must launch in its path's run.
@@ -203,12 +215,15 @@ FUSED_KERNELS = PAIRING_KERNELS + ("hard_chain",)
 SPLIT_KERNELS = ("pow_ladder_w4", "fq12_inv", "fq12_mul", "fq12_cyc_sq", "fq12_slotwise")
 POW_KERNELS = ("fq12_sq", "fq12_mul", "fq12_inv")
 KLAYOUT_KERNELS = ("fq12_mul_sparse", "pow_ladder", "fq12_sq")
-VALIDATE_KERNELS = ("trajectory_end", "canonical_eq")
+VALIDATE_MODES = ("g1_on_curve", "g2_on_curve", "g2_subgroup_compare")
+VALIDATE_KERNELS = ("trajectory_end",) + VALIDATE_MODES
+GROTH16_KERNELS = VALIDATE_KERNELS + ("canonical_eq",)
 STREAM_KERNELS = PAIRING_KERNELS + ("canonical",)  # the digits of every chunk's export
-#: k_canonical's compare launches in one Groth16 verify call: g1_on_curve on
-#: A, C and vk_x, g2_on_curve on B, the subgroup compare's two fp_is_zero and
-#: two Fq2 equalities, the accept's fq12_eq
-GROTH16_COMPARES = 3 + 1 + 4 + 1
+#: Launches of one validate_inputs call, and of one Groth16 verify call
+#: (g1_on_curve on A, C and vk_x; the accept's fq12_eq on k_canonical)
+VALIDATE_COUNTS = {"trajectory_end": 1, "g1_on_curve": 1, "g2_on_curve": 1,
+                   "g2_subgroup_compare": 1, "canonical_eq": 0}
+GROTH16_COUNTS = dict(VALIDATE_COUNTS, g1_on_curve=3, canonical_eq=1)
 #: Operand bytes a timing rotates through, three times the H100's 50 MB L2:
 #: each launch then reads its operands from HBM, as its bytes bound assumes
 L2_ROTATE_BYTES = 150e6
@@ -886,6 +901,126 @@ def canonical_kernel(results, bound, ptxas_log: str) -> None:
                      bound_ms_65536_lanes=wide["bound_ms"])
 
 
+def validate_kernel(results, bound, ptxas_log: str, g1s, g2s) -> None:
+    """k_validate's three modes against their plain versions (run on CPU
+    copies) at BATCH and WIDE lanes, on the main path's pairs tiled with bad
+    lanes: Q on the twist outside G2, P = (5, 5), P = (0, 0) and Q off the
+    twist on lanes i % 16 = 1, 3, 5, 7; every coordinate the representative
+    x + p on lanes i % 16 = 9; the compare on kernel H's end state of Q's
+    ladder with Z = (p, 0) forced on lanes i % 16 = 11. Verdicts bit for
+    bit and as the oracle has them, one launch a call, no copy from the host
+    (sync debug mode "error"). Times rotate through operand sets of
+    L2_ROTATE_BYTES (from HBM, against the bound) and replay one set (warm in
+    the L2) beside them."""
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.curves import g1 as TG1
+    from pairing_tpu_torch.curves import g2 as TG2
+    from pairing_tpu_torch.curves.g2 import SUBGROUP_DIGITS
+    from pairing_tpu_torch.fields import fp as F
+    from pairing_tpu_torch.fields.fp2 import Fp2
+    from pairing_tpu_torch.ops import curve_kernels as CK
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.ops.fq12_kernels import kstack
+    from pairing_tpu_torch.utils import bn254 as c
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    for name in VALIDATE_MODES:
+        src, replaces = KERNEL_SOURCES[name]
+        results[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": 0, "max_abs_err": 0, "library_ms": None,
+                         "launches_by_path": {}, "shapes": {}}
+        add_ptxas(results[name], ptxas_log, "k_validate")
+    bad_q = non_subgroup_point()
+    p_limbs = torch.as_tensor(F.P_LIMBS, dtype=F.DTYPE, device=DEVICE)
+    #: per lane: the least IMADs (Fq2 products by constants counted as
+    #: products) and the operand rows read
+    imads = {"g1_on_curve": 2 * FP_SQ + FP_MUL, "g2_on_curve": 2 * FP2_SQ + FP2_MUL,
+             "g2_subgroup_compare": FP2_SQ + 5 * FP2_MUL}
+    rows = {"g1_on_curve": 2, "g2_on_curve": 4, "g2_subgroup_compare": 10}
+    modes = {"g1_on_curve": (lambda s: CK.g1_on_curve(s[0]), TG1.g1_on_curve_plain),
+             "g2_on_curve": (lambda s: CK.g2_on_curve(s[1]), TG2.g2_on_curve_plain),
+             "g2_subgroup_compare": (lambda s: CK.g2_subgroup_compare(s[1], s[2]),
+                                     CK.g2_subgroup_compare_plain)}
+    for lanes in (BATCH, WIDE):
+        g1 = [g1s[i % UNIQUE] for i in range(lanes)]
+        g2 = [g2s[i % UNIQUE] for i in range(lanes)]
+        for i in range(1, lanes, 16):
+            g2[i] = bad_q
+        for i in range(3, lanes, 16):
+            g1[i] = (5, 5)
+        for i in range(5, lanes, 16):
+            g1[i] = (0, 0)
+        for i in range(7, lanes, 16):
+            g2[i] = (g2[i][0], ((g2[i][1][0] + 1) % c.P, g2[i][1][1]))
+        kind = torch.arange(lanes, device=DEVICE) % 16
+        plus = (kind == 9).to(F.DTYPE)[:, None] * p_limbs
+
+        def rep(x):  # x + p on lanes i % 16 = 9
+            return F.Fp(x.limbs + plus, 2 * c.P, 2 * F.RADIX)
+
+        p, q = pt.g1_from_ints(g1, DEVICE), pt.g2_from_ints(g2, DEVICE)
+        p = TG1.G1(rep(p.x), rep(p.y))
+        q = TG2.G2(Fp2(rep(q.x.c0), rep(q.x.c1)), Fp2(rep(q.y.c0), rep(q.y.c1)))
+        end = CK.trajectory_end(kstack([q.x.c0, q.x.c1, q.y.c0, q.y.c1]), SUBGROUP_DIGITS)
+        z_zero = torch.zeros_like(end)
+        z_zero[4] = p_limbs[:, None]
+        end = torch.where(kind == 11, z_zero, end)
+        ops = (p, q, end)
+        cpu = (map_limbs(p, lambda t: t.cpu()), map_limbs(q, lambda t: t.cpu()), end.cpu())
+        k = kind.tolist()
+        want = {"g1_on_curve": [x not in (3, 5) for x in k],
+                "g2_on_curve": [x != 7 for x in k],
+                "g2_subgroup_compare": [x not in (1, 11) for x in k]}
+        for name, (run, plain) in modes.items():
+            before = dispatch.KERNELS[name].launches
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = run(ops)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(dispatch.KERNELS[name].launches == before + 1, f"{name}: not one launch")
+            plain_args = (cpu[0],) if name == "g1_on_curve" else (
+                (cpu[1],) if name == "g2_on_curve" else (cpu[1], cpu[2]))
+            check(torch.equal(got.cpu(), plain(*plain_args)),
+                  f"{name} differs from its plain version at {lanes} lanes")
+            verdicts = got.tolist()
+            check(all(g == w for g, w, x in zip(verdicts, want[name], k)
+                      if not (name == "g2_subgroup_compare" and x == 7)),
+                  f"{name}: verdicts differ from the oracle's at {lanes} lanes")
+        print(f"k_validate at {lanes} lanes: g1_on_curve, g2_on_curve and g2_subgroup_compare "
+              f"equal their plain versions bit for bit, one launch each, no copy from the host",
+              flush=True)
+
+        def copy_set():
+            return (map_limbs(p, torch.clone), map_limbs(q, torch.clone), end.clone())
+
+        set_bytes = nbytes([p.x.limbs, p.y.limbs])
+        sets = [ops] + [copy_set() for _ in range(int(-(-L2_ROTATE_BYTES // set_bytes)) - 1)]
+        for name, (run, plain) in modes.items():
+            n_bytes = rows[name] * 4 * F.NLIMBS * lanes + lanes
+            plain_args = (p,) if name == "g1_on_curve" else (
+                (q,) if name == "g2_on_curve" else (q, end))
+            ms, warm = rotated_ms(sets, run), graph_ms(lambda: run(ops), KERNEL_REPS)
+            plain_ms = timed_ms(lambda: plain(*plain_args), 1)
+            bound_ms, bound_by = bound(imads[name] * lanes, n_bytes)
+            results[name]["shapes"][f"{lanes}"] = {
+                "ms": ms, "ms_l2_warm": warm, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": n_bytes, "sets": len(sets)}
+            print(f"{name} at {lanes} lanes: {ms:.5f} ms from HBM ({len(sets)} operand sets in "
+                  f"turn), {warm:.5f} ms warm in the L2; bound {bound_ms:.5f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of it; plain {plain_ms:.3f} ms", flush=True)
+        del sets, ops, cpu, p, q, end
+        torch.cuda.empty_cache()
+
+    for name in VALIDATE_MODES:
+        entry = results[name]
+        head, wide = entry["shapes"][f"{BATCH}"], entry["shapes"][f"{WIDE}"]
+        entry.update(ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                     bound_by=head["bound_by"], ms_65536_lanes=wide["ms"],
+                     bound_ms_65536_lanes=wide["bound_ms"])
+
+
 def seeded_pairs():
     from pairing_tpu_torch.oracle import native as o
     from pairing_tpu_torch.utils import bn254 as c
@@ -1187,12 +1322,12 @@ def validation_path(results, card: str, g1s, g2s):
     """``validate_inputs`` over the main path's pairs tiled to BATCH lanes,
     with bad lanes at fixed positions, lane for lane against the oracle's
     masks, with and without the subgroup check; then a Groth16 verify
-    call's compares on them, which launch ``canonical_eq`` GROTH16_COMPARES
-    times."""
+    call's checks on them, which launch GROTH16_COUNTS."""
     import pairing_tpu_torch as pt
     from pairing_tpu_torch.curves.g1 import g1_on_curve
     from pairing_tpu_torch.fields import fp12 as F12
     from pairing_tpu_torch.oracle import native as o
+    from pairing_tpu_torch.ops import dispatch
     from pairing_tpu_torch.ops.canon_kernels import all_equal_plain
     from pairing_tpu_torch.ops.fq12_kernels import kf12_view, random_kf12
     from pairing_tpu_torch.utils import bn254 as c
@@ -1228,10 +1363,8 @@ def validation_path(results, card: str, g1s, g2s):
     full, first_s = run_path("validate_inputs", VALIDATE_KERNELS,
                              lambda: pt.validate_inputs(p, q), results)
     peak = torch.cuda.max_memory_allocated()
-    n_compares = results["canonical_eq"]["launches_by_path"]["validate_inputs"]
-    check(n_compares == GROTH16_COMPARES - 3,
-          f"validate_inputs launched canonical_eq {n_compares} times, want "
-          f"{GROTH16_COMPARES - 3} (g1_on_curve, g2_on_curve, the subgroup compare's four)")
+    counts = {k: dispatch.launch_counts()[k] for k in VALIDATE_COUNTS}
+    check(counts == VALIDATE_COUNTS, f"validate_inputs launched {counts}, want {VALIDATE_COUNTS}")
     fast = pt.validate_inputs(p, q, subgroup_check=False)
     for name, got in (("subgroup_check", full), ("no_subgroup_check", fast)):
         check(got.dtype == torch.bool and tuple(got.shape) == (BATCH,),
@@ -1258,11 +1391,10 @@ def validation_path(results, card: str, g1s, g2s):
         valid = pt.validate_inputs(p, q) & g1_on_curve(p) & g1_on_curve(p)
         return valid, valid & F12.fq12_eq(prod, one)
 
-    (valid, accept), _ = run_path("groth16_shaped", ("trajectory_end", "canonical_eq"),
-                                  verify_call, results)
-    n_compares = results["canonical_eq"]["launches_by_path"]["groth16_shaped"]
-    check(n_compares == GROTH16_COMPARES, f"a Groth16-shaped call launched canonical_eq "
-          f"{n_compares} times, want {GROTH16_COMPARES}")
+    (valid, accept), _ = run_path("groth16_shaped", GROTH16_KERNELS, verify_call, results)
+    counts = {k: dispatch.launch_counts()[k] for k in GROTH16_COUNTS}
+    check(counts == GROTH16_COUNTS,
+          f"a Groth16-shaped call launched {counts}, want {GROTH16_COUNTS}")
     ones = [(x, y) for s, t in zip(prod.s, one.s) for x, y in ((s.c0, t.c0), (s.c1, t.c1))]
     check(valid.tolist() == want["subgroup_check"]
           and torch.equal(accept, valid & all_equal_plain(ones))
@@ -1271,9 +1403,9 @@ def validation_path(results, card: str, g1s, g2s):
     entry = results["trajectory_end"]
     print(f"validation path: validate_inputs at {BATCH} lanes equals the oracle's masks lane for "
           f"lane with and without the subgroup check (bad lanes: {bad}; oracle {oracle_s:.1f} s); "
-          f"{ms:.3f} ms per call ({runs} calls; first call {first_s:.3f} s), canonical_eq "
-          f"{GROTH16_COMPARES - 3} launches a call ({GROTH16_COMPARES} in a Groth16-shaped call, "
-          f"whose mask and accept bits equal the plain route's), kernel H's end-only "
+          f"{ms:.3f} ms per call ({runs} calls; first call {first_s:.3f} s), launches a call "
+          f"{VALIDATE_COUNTS} ({GROTH16_COUNTS} in a Groth16-shaped call, whose mask and accept "
+          f"bits equal the plain route's), kernel H's end-only "
           f"mode {entry['ms']:.4f} ms of it, bound {entry['bound_ms']:.4f} ms "
           f"({entry['bound_by']}); peak device memory {peak / 2**30:.3f} GiB, "
           f"{(peak - held_before) / 2**20:.1f} MiB above the {held_before / 2**30:.3f} GiB held "
@@ -1627,6 +1759,8 @@ def main() -> int:
     canonical_kernel(results, bound, info.ptxas)
     torch.cuda.empty_cache()
     g1s, g2s = seeded_pairs()
+    validate_kernel(results, bound, info.ptxas, g1s, g2s)
+    torch.cuda.empty_cache()
     p, q, canon, want = main_path(results, card, g1s, g2s)
     ps, qs, multi_canon = multi_path(results, card, g1s, g2s)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1650,7 +1784,8 @@ def main() -> int:
                 hard_chain="pairing_fused_chain", pow_ladder_w4="split_final_exp",
                 fq12_sq="fq12_pow", fq12_mul_sparse="kernel_layout_ops",
                 pow_ladder="kernel_layout_ops", trajectory_end="validate_inputs",
-                canonical="pairing_stream", canonical_eq="validate_inputs")
+                canonical="pairing_stream", canonical_eq="groth16_shaped",
+                **{m: "validate_inputs" for m in VALIDATE_MODES})
     for name, r in results.items():
         r["launches"] = r["launches_by_path"][home[name]]
     print(json.dumps({"kernels": [results[n] for n in KERNEL_SOURCES]}))

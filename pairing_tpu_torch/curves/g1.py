@@ -45,10 +45,21 @@ def g1_neg(p: G1) -> G1:
     return G1(p.x, F.fp_neg(p.y))
 
 
+def g1_on_curve_plain(p: G1):
+    """Plain PyTorch version of ``k_validate``'s G1 mode: y^2 == x^3 + 3,
+    bool [batch]."""
+    y2 = F.mont_mul(p.y, p.y)
+    x3 = F.mont_mul(F.mont_mul(p.x, p.x), p.x)
+    rhs = F.fp_add(x3, F.fp_const_mont(3, p.batch_shape, p.x.device))
+    return F.fp_eq(y2, rhs)
+
+
 def g1_on_curve(p: G1):
-    """y^2 == x^3 + 3: bool [batch]; a ``validate.g1_on_curve`` range."""
+    """y^2 == x^3 + 3: bool [batch]; a ``validate.g1_on_curve`` range holding
+    one launch of ``k_validate``'s G1 mode on CUDA tensors
+    (``ops.curve_kernels.g1_on_curve``), :func:`g1_on_curve_plain` on CPU
+    ones."""
+    from ..ops import curve_kernels as CK
+
     with record_function("validate.g1_on_curve"):
-        y2 = F.mont_mul(p.y, p.y)
-        x3 = F.mont_mul(F.mont_mul(p.x, p.x), p.x)
-        rhs = F.fp_add(x3, F.fp_const_mont(3, p.batch_shape, p.x.device))
-        return F.fp_eq(y2, rhs)
+        return CK.g1_on_curve(p)

@@ -69,13 +69,24 @@ def g2_select(mask, a: G2, b: G2) -> G2:
     return G2(F2.select(mask, a.x, b.x), F2.select(mask, a.y, b.y))
 
 
+def g2_on_curve_plain(q: G2):
+    """Plain PyTorch version of ``k_validate``'s G2 mode: y^2 == x^3 + 3/xi,
+    bool [batch]."""
+    y2 = F2.square(q.y)
+    x3 = F2.mul(F2.square(q.x), q.x)
+    rhs = F2.add(x3, F2.fp2_from_ints(TWIST_B, q.batch_shape, q.x.device))
+    return F2.eq(y2, rhs)
+
+
 def g2_on_curve(q: G2):
-    """y^2 == x^3 + 3/xi: bool [batch]; a ``validate.g2_on_curve`` range."""
+    """y^2 == x^3 + 3/xi: bool [batch]; a ``validate.g2_on_curve`` range
+    holding one launch of ``k_validate``'s G2 mode on CUDA tensors
+    (``ops.curve_kernels.g2_on_curve``), :func:`g2_on_curve_plain` on CPU
+    ones."""
+    from ..ops import curve_kernels as CK
+
     with record_function("validate.g2_on_curve"):
-        y2 = F2.square(q.y)
-        x3 = F2.mul(F2.square(q.x), q.x)
-        rhs = F2.add(x3, F2.fp2_from_ints(TWIST_B, q.batch_shape, q.x.device))
-        return F2.eq(y2, rhs)
+        return CK.g2_on_curve(q)
 
 
 def g2_double_affine(q: G2) -> G2:
@@ -200,10 +211,12 @@ def g2_in_subgroup(q: G2) -> torch.Tensor:
     exactly the r-torsion.
 
     The ladder (double, then add +-Q on a nonzero digit, from Q) runs on
-    kernel H's end-only mode (``ops.curve_kernels.trajectory_end``) on CUDA
-    tensors, on its plain version on CPU ones; the comparison X == psi(Q).x
-    Z^2, Y == psi(Q).y Z^3 is on canonical values. The check is a
-    ``validate.g2_subgroup`` range holding ``.ladder`` and ``.compare``.
+    kernel H's end-only mode (``ops.curve_kernels.trajectory_end``), the
+    comparison X == psi(Q).x Z^2, Y == psi(Q).y Z^3, Z != 0 on
+    ``k_validate``'s compare mode (``ops.curve_kernels.g2_subgroup_compare``,
+    exact mod p) on CUDA tensors; CPU ones take their plain versions. The
+    check is a ``validate.g2_subgroup`` range holding ``.ladder`` and
+    ``.compare``.
 
     Preconditions: Q on the twist (``g2_on_curve``) and not infinity. For
     small-order Q the [6x^2] ladder can degenerate (mixed-add collision
@@ -218,15 +231,10 @@ def g2_in_subgroup(q: G2) -> torch.Tensor:
         flat = [F.Fp(c.limbs.reshape(-1, F.NLIMBS), c.bound, c.limb_bound)
                 for c in (q.x.c0, q.x.c1, q.y.c0, q.y.c1)]
         with record_function("validate.g2_subgroup.ladder"):
-            acc = CK.jac_view(CK.trajectory_end(kstack(flat), SUBGROUP_DIGITS))
+            end = CK.trajectory_end(kstack(flat), SUBGROUP_DIGITS)
         with record_function("validate.g2_subgroup.compare"):
-            psi = twisted_frobenius(G2(Fp2(flat[0], flat[1]), Fp2(flat[2], flat[3])))
-            zz = F2.square(acc.Z)
-            zzz = F2.mul(zz, acc.Z)
-            z_nonzero = ~(F.fp_is_zero(acc.Z.c0) & F.fp_is_zero(acc.Z.c1))
-            ok = (F2.eq(acc.X, F2.mul(psi.x, zz)) & F2.eq(acc.Y, F2.mul(psi.y, zzz))
-                  & z_nonzero)
-            return ok.reshape(bs)
+            qf = G2(Fp2(flat[0], flat[1]), Fp2(flat[2], flat[3]))
+            return CK.g2_subgroup_compare(qf, end).reshape(bs)
 
 
 # ---------------------------------------------------------------------------

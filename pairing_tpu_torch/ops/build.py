@@ -59,6 +59,7 @@ ENTRY_POINTS = {
     "pt_epilogue_points": (_P, _P, _P, _P, _P, _I, _P),
     "pt_epilogue_lines": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "pt_canonical": (_P, _I, _P, _P, _I, _P),
+    "pt_validate": (_P, _I, _P, _I, _P),
 }
 
 

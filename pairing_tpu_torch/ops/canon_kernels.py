@@ -71,24 +71,25 @@ def operand_strides(limbs: torch.Tensor, batch_shape) -> Optional[Tuple[int, int
     return row, x.stride(-1)
 
 
-def operand_table(pairs: Sequence[Pair], batch_shape) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """The C entry's host table int64 [pairs, 2, 4]: per operand (address,
-    row stride, limb stride, steps), zeros for an absent b. Also returns the
-    contiguous copies it made, which must outlive the launch."""
+def operand_table(operands: Sequence[Optional[Fp]],
+                  batch_shape) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """A C entry's host table int64 [n, 4] (``k_canonical``'s, ``k_validate``'s):
+    per operand (address, row stride, limb stride, steps), zeros for an
+    absent one (None). Also returns the contiguous copies it made, which must
+    outlive the launch. Raises ValueError for a bound above p 2^20."""
     rows, keep = [], []
-    for pair in pairs:
-        for x in pair:
-            if x is None:
-                rows += [0, 0, 0, 0]
-                continue
-            if x.limbs.dtype != F.DTYPE:
-                raise TypeError(f"operand dtype {x.limbs.dtype}, want {F.DTYPE}")
-            limbs, strides = x.limbs, operand_strides(x.limbs, batch_shape)
-            if strides is None:
-                limbs = limbs.broadcast_to(tuple(batch_shape) + (NLIMBS,)).contiguous()
-                keep.append(limbs)
-                strides = (NLIMBS, 1)
-            rows += [limbs.data_ptr(), *strides, subtraction_steps(x.bound)]
+    for x in operands:
+        if x is None:
+            rows += [0, 0, 0, 0]
+            continue
+        if x.limbs.dtype != F.DTYPE:
+            raise TypeError(f"operand dtype {x.limbs.dtype}, want {F.DTYPE}")
+        limbs, strides = x.limbs, operand_strides(x.limbs, batch_shape)
+        if strides is None:
+            limbs = limbs.broadcast_to(tuple(batch_shape) + (NLIMBS,)).contiguous()
+            keep.append(limbs)
+            strides = (NLIMBS, 1)
+        rows += [limbs.data_ptr(), *strides, subtraction_steps(x.bound)]
     return torch.tensor(rows, dtype=torch.int64), keep
 
 
@@ -112,7 +113,7 @@ def canonical(a: Fp) -> Fp:
     out = torch.empty(bs + (NLIMBS,), dtype=F.DTYPE, device=a.device)
     lanes = out.numel() // NLIMBS
     if lanes:
-        table, keep = operand_table([(a, None)], bs)  # keep: alive through the launch
+        table, keep = operand_table([a, None], bs)  # keep: alive through the launch
         CANONICAL(dispatch.Host(table), 1, out, None, lanes)
     return Fp(out, bound=P, limb_bound=F.MASK)
 
@@ -129,6 +130,7 @@ def all_equal(pairs: Sequence[Pair]) -> torch.Tensor:
     bs = torch.broadcast_shapes(*(t.shape[:-1] for t in limbs))
     out = torch.empty(bs, dtype=torch.bool, device=limbs[0].device)
     if out.numel():
-        table, keep = operand_table(pairs, bs)  # keep: alive through the launch
+        operands = [x for pair in pairs for x in pair]
+        table, keep = operand_table(operands, bs)  # keep: alive through the launch
         CANONICAL_EQ(dispatch.Host(table), len(pairs), None, out, out.numel())
     return out

@@ -11,6 +11,14 @@ check's [6x^2] Q ladder (``curves.g2.g2_in_subgroup``).
 ``epilogue_points`` runs the Miller loop's epilogue points on H's mixed
 addition (``k_epilogue_points``, ``csrc/miller_epilogue.cu``): Q1 = psi(Q),
 -Q2 = -psi(Q1) and end + Q1, which the reference leaves to XLA.
+
+``g1_on_curve``, ``g2_on_curve`` and ``g2_subgroup_compare`` are the three
+modes of ``k_validate`` (``csrc/validate.cu``), one launch each: the curve
+equations and the compare that ends the G2 subgroup check, exact mod p,
+operands read in place through their strides as ``k_canonical`` reads them
+(``canon_kernels.operand_table``). CPU tensors take the plain versions
+(``curves.g1.g1_on_curve_plain``, ``curves.g2.g2_on_curve_plain``,
+:func:`g2_subgroup_compare_plain`).
 """
 
 from __future__ import annotations
@@ -19,16 +27,22 @@ from typing import Sequence
 
 import torch
 
-from ..curves.g2 import (G2, G2Jac, jac_cap, jac_double, jac_from_affine, jac_mixed_add,
-                         neg_twisted_frobenius, twisted_frobenius)
+from ..curves.g1 import G1, g1_on_curve_plain
+from ..curves.g2 import (G2, G2Jac, g2_on_curve_plain, jac_cap, jac_double, jac_from_affine,
+                         jac_mixed_add, neg_twisted_frobenius, twisted_frobenius)
+from ..fields import fp as F
 from ..fields import fp2 as F2
-from ..fields.fp import NLIMBS
+from ..fields.fp import NLIMBS, Fp
 from . import dispatch
+from .canon_kernels import operand_table
 from .fq12_kernels import kfp2_view, kstack
 
 TRAJECTORY = dispatch.KERNELS["trajectory"]
 TRAJECTORY_END = dispatch.KERNELS["trajectory_end"]
 EPILOGUE_POINTS = dispatch.KERNELS["epilogue_points"]
+G1_ON_CURVE = dispatch.KERNELS["g1_on_curve"]
+G2_ON_CURVE = dispatch.KERNELS["g2_on_curve"]
+G2_SUBGROUP_COMPARE = dispatch.KERNELS["g2_subgroup_compare"]
 
 
 def jac_rows(p: G2Jac) -> torch.Tensor:
@@ -139,3 +153,54 @@ def epilogue_points(q_arr: torch.Tensor, end: torch.Tensor):
     st91 = torch.empty((6, NLIMBS, lanes), **opts)
     EPILOGUE_POINTS(q_arr, end, q1, nq2, st91, lanes)
     return q1, nq2, st91
+
+
+def _validate(kernel, mode: int, operands: Sequence[Fp]) -> torch.Tensor:
+    """One launch of ``k_validate``'s ``mode`` on the operands broadcast over
+    their batch: bool [batch]."""
+    bs = torch.broadcast_shapes(*(x.batch_shape for x in operands))
+    out = torch.empty(bs, dtype=torch.bool, device=operands[0].device)
+    if out.numel():
+        table, keep = operand_table(operands, bs)  # keep: alive through the launch
+        kernel(dispatch.Host(table), mode, out, out.numel())
+    return out
+
+
+def g1_on_curve(p: G1) -> torch.Tensor:
+    """y^2 == x^3 + 3 exactly mod p: bool [batch]."""
+    if not dispatch.on_cuda(p.x.limbs, p.y.limbs):
+        return g1_on_curve_plain(p)
+    return _validate(G1_ON_CURVE, 0, [p.x, p.y])
+
+
+def g2_on_curve(q: G2) -> torch.Tensor:
+    """y^2 == x^3 + 3/xi exactly mod p: bool [batch]."""
+    comps = [q.x.c0, q.x.c1, q.y.c0, q.y.c1]
+    if not dispatch.on_cuda(*(c.limbs for c in comps)):
+        return g2_on_curve_plain(q)
+    return _validate(G2_ON_CURVE, 1, comps)
+
+
+def g2_subgroup_compare_plain(q: G2, end: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``k_validate``'s compare mode."""
+    acc = jac_view(end)
+    psi = twisted_frobenius(q)
+    zz = F2.square(acc.Z)
+    zzz = F2.mul(zz, acc.Z)
+    z_nonzero = ~(F.fp_is_zero(acc.Z.c0) & F.fp_is_zero(acc.Z.c1))
+    return F2.eq(acc.X, F2.mul(psi.x, zz)) & F2.eq(acc.Y, F2.mul(psi.y, zzz)) & z_nonzero
+
+
+def g2_subgroup_compare(q: G2, end: torch.Tensor) -> torch.Tensor:
+    """From Q of batch [B] and the Jacobian end state [6, NLIMBS, B] of its
+    [6x^2] ladder (:func:`trajectory_end`): X == psi(Q).x Z^2, Y == psi(Q).y
+    Z^3 and Z != 0, exactly mod p, with psi = ``twisted_frobenius``: bool
+    [B]."""
+    comps = [q.x.c0, q.x.c1, q.y.c0, q.y.c1]
+    if not dispatch.on_cuda(end, *(c.limbs for c in comps)):
+        return g2_subgroup_compare_plain(q, end)
+    lanes = end.shape[-1]
+    dispatch.check_operand(end, "end", (6,), lanes)
+    acc = jac_view(end)
+    state = [acc.X.c0, acc.X.c1, acc.Y.c0, acc.Y.c1, acc.Z.c0, acc.Z.c1]
+    return _validate(G2_SUBGROUP_COMPARE, 2, comps + state)

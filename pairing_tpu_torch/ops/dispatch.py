@@ -73,7 +73,9 @@ class Kernel:
 #: ``miller_f_collect`` any launch that writes the per-step accumulator;
 #: kernel H's ``trajectory`` stores every loop top and post-double,
 #: ``trajectory_end`` the end state alone; ``k_canonical``'s ``canonical``
-#: writes canonical digits, ``canonical_eq`` compares pairs of values.
+#: writes canonical digits, ``canonical_eq`` compares pairs of values;
+#: ``k_validate``'s ``g1_on_curve``, ``g2_on_curve`` and
+#: ``g2_subgroup_compare`` are the three checks of ``validate_inputs``.
 KERNELS = {
     name: Kernel(name, entry)
     for name, entry in (
@@ -102,6 +104,9 @@ KERNELS = {
         ("epilogue_lines", "pt_epilogue_lines"),
         ("canonical", "pt_canonical"),
         ("canonical_eq", "pt_canonical"),
+        ("g1_on_curve", "pt_validate"),
+        ("g2_on_curve", "pt_validate"),
+        ("g2_subgroup_compare", "pt_validate"),
     )
 }
 

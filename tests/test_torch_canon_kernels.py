@@ -39,8 +39,8 @@ WORDS = 5
 
 
 def p_shift_table() -> np.ndarray:
-    """``P_SHIFT`` as written in ``csrc/canonical.cu``: uint64 [20, 5]."""
-    text = (build.CSRC / "canonical.cu").read_text()
+    """``P_SHIFT`` as written in ``csrc/canon.cuh``: uint64 [20, 5]."""
+    text = (build.CSRC / "canon.cuh").read_text()
     body = text.split("P_SHIFT[CANON_MAX_STEPS][CANON_WORDS] = {", 1)[1].split("};", 1)[0]
     words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]{16})ull", body)]
     return np.array(words, dtype=np.uint64).reshape(CK.MAX_STEPS, WORDS)
@@ -148,7 +148,7 @@ def case_table():
     ops, g = edges()
     a, b = ops["below_2p"], ops["difference"]
     const = F.fp_const(3, (LANES,), "cpu")
-    table, keep = CK.operand_table([(a, b), (const, None), (ops["wide_limbs"], const)], (LANES,))
+    table, keep = CK.operand_table([a, b, const, None, ops["wide_limbs"], const], (LANES,))
     assert keep == []  # everything read in place
     assert table.dtype == torch.int64 and table.tolist() == [
         a.limbs.data_ptr(), F.NLIMBS, 1, 1, b.limbs.data_ptr(), F.NLIMBS + 1, 1, 2,
@@ -156,13 +156,13 @@ def case_table():
         ops["wide_limbs"].limbs.data_ptr(), F.NLIMBS, 1, 17, const.limbs.data_ptr(), 0, 1, 1]
     row = Fp(a.limbs[:8].unsqueeze(0), a.bound, a.limb_bound)  # [1, 8] against [6, 8]
     col = Fp(a.limbs[:6].unsqueeze(1), a.bound, a.limb_bound)
-    table, keep = CK.operand_table([(row, col)], (6, 8))
+    table, keep = CK.operand_table([row, col], (6, 8))
     assert len(keep) == 2 and [k.shape for k in keep] == [(6, 8, F.NLIMBS)] * 2
     assert table.tolist() == [keep[0].data_ptr(), F.NLIMBS, 1, 1,
                               keep[1].data_ptr(), F.NLIMBS, 1, 1]
     assert torch.equal(keep[0][3], a.limbs[:8]) and torch.equal(keep[1][:, 5], a.limbs[:6])
     with pytest.raises(TypeError):
-        CK.operand_table([(Fp(a.limbs.long()), None)], (LANES,))
+        CK.operand_table([Fp(a.limbs.long()), None], (LANES,))
 
 
 def case_model_digits():

@@ -303,6 +303,12 @@ def _validation_lanes():
             [good_g2[0], bad_q, good_g2[1], good_g2[1]])
 
 
+#: A call of validate_inputs: one launch of kernel H's end-only mode and of
+#: each k_validate mode, no k_canonical compare.
+VALIDATE_COUNTS = {"trajectory_end": 1, "g1_on_curve": 1, "g2_on_curve": 1,
+                   "g2_subgroup_compare": 1, "canonical_eq": 0}
+
+
 def test_validate_inputs_on_card_matches_oracle(gen):
     import pairing_tpu_torch as pt
     from pairing_tpu_torch.oracle import native as o
@@ -313,11 +319,84 @@ def test_validate_inputs_on_card_matches_oracle(gen):
     p, q = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
     dispatch.reset_launch_counts()
     mask = pt.validate_inputs(p, q)
-    assert dispatch.launch_counts()["trajectory_end"] == 1
+    counts = dispatch.launch_counts()
+    assert {k: counts[k] for k in VALIDATE_COUNTS} == VALIDATE_COUNTS, counts
     assert mask.is_cuda and mask.tolist() == [True, False, False, False]
     assert pt.validate_inputs(p, q, subgroup_check=False).tolist() == [True, True, False, False]
     ks = pt.g2_from_ints([o.g2_mul((c.G2_GEN_X, c.G2_GEN_Y), k) for k in (1, 2, 3)], "cuda")
     assert pt.g2_in_subgroup(ks).tolist() == [True, True, True]
+
+
+#: k_validate runs 128 lanes a block: these cut it at the edge.
+VALIDATE_LANE_COUNTS = [1, 33, 1029, 16384, 65536]
+
+
+@pytest.mark.parametrize("layout", ["rows", "views"])
+@pytest.mark.parametrize("lanes", VALIDATE_LANE_COUNTS)
+def test_validate_kernel_matches_plain(gen, lanes, layout):
+    """k_validate's three modes, one launch each and no copy from the host,
+    equal to their plain versions (on CPU copies) lane for lane on
+    ``validate_edges``' lanes: valid pairs, Q outside G2, P = (5, 5), P =
+    (0, 0), Q off the twist, representatives x + p and lazy ones of bound
+    4p; the compare on kernel H's end state of Q's ladder, with Z = (p, 0)
+    forced on some lanes, and on the hand-made states. ``views``: P as row
+    slices of a larger tensor (as ``bench_gpu/drivers/groth16_verify.py``
+    cuts its pool) and Q as lane 0 ``expand``ed over the batch (row stride
+    0)."""
+    from validate_edges import validate_case
+
+    from pairing_tpu_torch.curves import g1 as TG1
+    from pairing_tpu_torch.curves import g2 as TG2
+    from pairing_tpu_torch.curves.g2 import SUBGROUP_DIGITS
+    from pairing_tpu_torch.fields.fp import NLIMBS, Fp
+    from pairing_tpu_torch.fields.fp2 import Fp2
+    from pairing_tpu_torch.ops import curve_kernels as CK
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.ops.fq12_kernels import kstack
+    from pairing_tpu_torch.utils.interop import map_limbs
+
+    p, q, hand, kinds = validate_case(lanes, "cuda")
+    if layout == "views":
+        def cut(x):
+            pool = torch.cat([x.limbs, x.limbs])
+            return Fp(pool[lanes // 2:lanes // 2 + lanes], x.bound, x.limb_bound)
+
+        def wide(x):
+            return Fp(x.limbs[:1].expand(lanes, NLIMBS), x.bound, x.limb_bound)
+
+        p = TG1.G1(cut(p.x), cut(p.y))
+        q = TG2.G2(Fp2(wide(q.x.c0), wide(q.x.c1)), Fp2(wide(q.y.c0), wide(q.y.c1)))
+    end = CK.trajectory_end(kstack([q.x.c0, q.x.c1, q.y.c0, q.y.c1]), SUBGROUP_DIGITS)
+    zero = torch.tensor([k == "z_zero" for k in kinds], device="cuda")
+    end = torch.where(zero, hand, end)
+    torch.cuda.synchronize()
+    dispatch.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {"g1": CK.g1_on_curve(p), "g2": CK.g2_on_curve(q),
+               "ladder": CK.g2_subgroup_compare(q, end),
+               "hand": CK.g2_subgroup_compare(q, hand)}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    counts = dispatch.launch_counts()
+    assert (counts["g1_on_curve"], counts["g2_on_curve"], counts["g2_subgroup_compare"]) == (
+        1, 1, 2) and sum(counts.values()) == 4, counts
+    cpu = {"p": map_limbs(p, lambda t: t.cpu()), "q": map_limbs(q, lambda t: t.cpu())}
+    want = {"g1": TG1.g1_on_curve_plain(cpu["p"]), "g2": TG2.g2_on_curve_plain(cpu["q"]),
+            "ladder": CK.g2_subgroup_compare_plain(cpu["q"], end.cpu()),
+            "hand": CK.g2_subgroup_compare_plain(cpu["q"], hand.cpu())}
+    for name in got:
+        assert got[name].dtype == torch.bool and got[name].shape == (lanes,), name
+        assert torch.equal(got[name].cpu(), want[name]), name
+    ladder = got["ladder"].tolist()
+    if layout == "rows":
+        assert got["g1"].tolist() == [k not in ("p_5_5", "p_0_0") for k in kinds]
+        assert got["g2"].tolist() == [k != "off_twist" for k in kinds]
+        assert got["hand"].tolist() == [k not in ("outside_g2", "z_zero") for k in kinds]
+        assert all(ok == (k in ("valid", "plus_p", "lazy", "p_5_5", "p_0_0"))
+                   for ok, k in zip(ladder, kinds) if k != "off_twist")
+    else:
+        assert got["g2"].all() and ladder == [k != "z_zero" for k in kinds]
 
 
 def test_batch_to_affine_on_card_matches_cpu_route(gen):
@@ -710,8 +789,9 @@ def test_groth16_shaped_call_on_card_matches_cpu_route(gen):
     validate_inputs on (A, B), g1_on_curve on C and vk_x, multi_pairing over
     the four pairs, then fq12_eq against one. Mask and accept bits equal the CPU route's (the
     plain versions; the accept on the card's product) and the expected
-    ones; the call launches canonical_eq 9 times (3 + 1 + 4 + 1) and the
-    digits mode never."""
+    ones; the call launches k_validate's on-curve modes 3 + 1 times and its
+    compare once, canonical_eq once (the accept) and the digits mode
+    never."""
     import pairing_tpu_torch as pt
     from pairing_tpu_torch.fields.fp12 import Fq12, fq12_eq, fq12_one
     from pairing_tpu_torch.ops import dispatch
@@ -735,7 +815,9 @@ def test_groth16_shaped_call_on_card_matches_cpu_route(gen):
         return valid, prod, accept, dispatch.launch_counts()
 
     valid, prod, accept, counts = call("cuda")
-    assert counts["canonical_eq"] == 9 and counts["canonical"] == 0, counts
+    want = {"g1_on_curve": 3, "g2_on_curve": 1, "g2_subgroup_compare": 1, "trajectory_end": 1,
+            "canonical_eq": 1, "canonical": 0}
+    assert {k: counts[k] for k in want} == want, counts
     want_valid = [i != 5 for i in range(n)]
     assert valid.tolist() == want_valid
     assert accept.tolist() == [i not in (3, 5) for i in range(n)]
