@@ -13,10 +13,11 @@ toolkit (nvcc). It
      on seeded operands made on the card, values below 2p with settled limbs:
      the thirteen of the main path (A dense Fq12 product, B cyclotomic
      square, C Miller f-accumulation, D streamed x-power ladder, E
-     conjugate/Frobenius, F Fq power, G Fq12 inverse, H point trajectory,
-     I/J the two batch-inversion passes, K lines, the Miller loop's
-     epilogue points and lines) at its shapes, then kernel C with K = 4
-     pairs per product and with per-step collection, K12 the witness bit
+     conjugate/Frobenius, G Fq12 inverse, H point trajectory, I/J the two
+     batch-inversion passes, the Fq2 inverse between them, K lines, the
+     Miller loop's epilogue points and lines) at its shapes, then kernel F
+     (the Fq power), kernel C with K = 4 pairs per product and with
+     per-step collection, K12 the witness bit
      ladder and K13 the affine export at the witness path's shapes. Canonical
      values must be equal (tolerance zero: exact integer arithmetic) and
      every output limb in [0, 2^13 + 1], every value below 2p; prints both
@@ -43,8 +44,9 @@ toolkit (nvcc). It
   5. runs ``pairing_witness`` over the main path's 16384 lanes: its output
      must equal ``pairing``'s lane for lane; prints witnesses/s for trace
      generation on the device (no serialization) and the peak device
-     memory; writes the first 16 lanes with ``save_pairing_witness`` and
-     both of the port's checkers must accept them;
+     memory; writes the first 16 lanes with ``save_pairing_witness``
+     (kernel F must launch there, on the aux columns' inverses) and both
+     of the port's checkers must accept them;
   6. runs ``multi_pairing_witness`` at K = 4 on 64 products, writes all of
      it, and both checkers must accept it;
   7. runs the final exponentiation's other routes on the main path's lanes:
@@ -107,15 +109,17 @@ and K15 (A in both modes; one thread per output component and lane), C
 (all three modes), D, K12, K16 and K17 (six threads a lane), F (one thread
 a lane, G's window chain), G (three launches: the tower to the norm and
 back one thread per output component, the Fermat chain one thread per
-lane), H (two; both modes), I (two), J (four), K (one thread per line and lane) and
-K13 (one thread per state and lane), in the JSON line also carry their
-registers, stack, spill and shared bytes per block from this build's
+lane), H (two; both modes), I (two), J (four), K (one thread per line and
+lane), K13 (one thread per state and lane) and the Fq2 inverse (one thread
+a lane, G's chain between the norm and two products), in the JSON line
+also carry their registers, stack, spill and shared bytes per block from this build's
 ptxas report and their SASS instruction count (``cuobjdump -sass``; G's
 second and third kernels under ``ptxas_more``; the shared memory of G, H,
 K12, K15, K16 and K17 is dynamic, so the report shows none; their entries
 give the bytes they ask for at launch). ``fq12_pow``'s lines give its
-device time and its K18 launches. The entries of I, J and F also
-carry their times at the K = 4 path's 65,536 lanes; E's carries each
+device time and its K18 launches. The entries of I, J, F and the Fq2
+inverse also carry their times at the K = 4 path's 65,536 lanes, the Fq2
+inverse's also at 8192 (a ``groth16.b2048`` call's lanes); E's carries each
 program's device time (replayed from a CUDA graph: launched call by call
 E would be timed at the host's pace, kept as ``ms_eager``) and bound
 under ``programs`` (the conjugate and the powers 1, 2, 3), its ms and
@@ -202,11 +206,13 @@ KERNEL_SOURCES = {
                     "no TPU kernel: XLA, pairing_tpu/curves/g2.py:89"),
     "g2_subgroup_compare": ("pairing_tpu_torch/csrc/validate.cu",
                             "no TPU kernel: XLA, pairing_tpu/curves/g2.py:211"),
+    "fq2_inv": ("pairing_tpu_torch/csrc/fq2_inv.cu",
+                "no TPU kernel: XLA, pairing_tpu/pairing/miller_loop.py:299"),
 }
 
 #: The kernels each path runs; each must launch in its path's run.
 PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "fq12_slotwise",
-                   "fp_pow_bits", "fq12_inv", "trajectory", "prefix_products",
+                   "fq2_inv", "fq12_inv", "trajectory", "prefix_products",
                    "running_inverse", "lines", "epilogue_points", "epilogue_lines")
 MULTI_KERNELS = tuple("miller_f_multi" if n == "miller_f" else n for n in PAIRING_KERNELS)
 WITNESS_KERNELS = tuple(n for n in PAIRING_KERNELS if n not in ("miller_f", "pow_ladder_stream")
@@ -596,6 +602,24 @@ def kernel_phases(results, bound, ptxas_log: str) -> None:
     x = rand(lanes=WIDE)
     wide_case(results["fp_pow_bits"], bound, lambda: FPK.fp_pow_bits(x, P - 2),
               lambda: FPK.fp_pow_bits_plain(x, P - 2), WIDE * pow_imads(P - 2), (x,))
+
+    # Phase N's Fq2 inverse: the norm's two squares share one reduction,
+    # then the Fq inverse (a sliding window) and two Fq products; its plain
+    # version is the eager field glue around kernel F
+    fq2_inv_imads = 2 * SQ_PRODUCTS + MONT + pow_imads(P - 2) + 2 * FP_MUL
+    t = rand(2)
+    compare_kernel("fq2_inv", lambda: FPK.fp2_inv(t), lambda: FPK.fp2_inv_plain(t), results,
+                   bound, B * fq2_inv_imads, nbytes((t,)))
+    add_ptxas(results["fq2_inv"], ptxas_log, "k_fq2_inv")
+    t = rand(2, lanes=WIDE)
+    wide_case(results["fq2_inv"], bound, lambda: FPK.fp2_inv(t), lambda: FPK.fp2_inv_plain(t),
+              WIDE * fq2_inv_imads, (t,))
+    t = rand(2, lanes=B // 2)
+    ms = timed_ms(lambda: FPK.fp2_inv(t), KERNEL_REPS)
+    bound_ms, _ = bound(B // 2 * fq2_inv_imads, 2 * nbytes((t,)))
+    results["fq2_inv"]["ms_8192_lanes"], results["fq2_inv"]["bound_ms_8192_lanes"] = ms, bound_ms
+    print(f"fq2_inv at {B // 2} lanes: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms, "
+          f"{100 * bound_ms / ms:.1f}% of it", flush=True)
 
     # two Fq6 squares, the Fq6 inverse, two Fq6 products; the Fq2 norm's two
     # squares share one reduction, then the Fq inverse (a sliding window)
@@ -1705,7 +1729,11 @@ def witness_path(results, card: str, p, q, pairing_canon, tmp: Path):
           "pairing_witness output differs from pairing's")
     print(f"witness path: output equals pairing's on all {BATCH} lanes", flush=True)
     path = str(tmp / "witness_cut.npz")
-    W.save_pairing_witness(path, p, q, out, trace, lanes=range(WITNESS_CUT))
+    # the writer's aux columns invert on kernel F, its one path since Phase N
+    # has its own Fq2 inverse kernel
+    run_path("save_pairing_witness", ("fp_pow_bits",),
+             lambda: W.save_pairing_witness(path, p, q, out, trace, lanes=range(WITNESS_CUT)),
+             results)
     del out, trace
 
     runs = 2
@@ -1785,6 +1813,7 @@ def main() -> int:
                 fq12_sq="fq12_pow", fq12_mul_sparse="kernel_layout_ops",
                 pow_ladder="kernel_layout_ops", trajectory_end="validate_inputs",
                 canonical="pairing_stream", canonical_eq="groth16_shaped",
+                fp_pow_bits="save_pairing_witness",
                 **{m: "validate_inputs" for m in VALIDATE_MODES})
     for name, r in results.items():
         r["launches"] = r["launches_by_path"][home[name]]

@@ -167,8 +167,8 @@ def batch_to_affine(pts: G2Jac) -> G2:
     or any extra batch axis) to affine with one Fq inversion per lane.
 
     Montgomery's trick runs along axis 0 as Phase N of the Miller loop runs
-    it: prefix products (kernel I), the Fq2 inverse of the total (kernel F
-    inside), the running inverse (kernel J). CUDA tensors launch the
+    it: prefix products (kernel I), the Fq2 inverse of the total
+    (``k_fq2_inv``), the running inverse (kernel J). CUDA tensors launch the
     kernels, CPU tensors take their plain versions."""
     from ..ops import fp_kernels as FPK
     from ..ops import norm_kernels as NK
@@ -180,8 +180,7 @@ def batch_to_affine(pts: G2Jac) -> G2:
     flat = [F.Fp(c.limbs.reshape(n, -1, F.NLIMBS), c.bound, c.limb_bound) for c in (Z.c0, Z.c1)]
     z = kstack(flat).transpose(0, 1).contiguous()  # [N, 2, NLIMBS, B]
     prefix, total = NK.prefix_products(z)
-    tinv = F2.inv(kfp2_view(total), FPK.fp_inv)
-    zinv_rows = NK.running_inverse(z, prefix, kstack([tinv.c0, tinv.c1]))
+    zinv_rows = NK.running_inverse(z, prefix, FPK.fp2_inv(total))
     view = kfp2_view(zinv_rows)  # batch [N, B]
     zinv = Fp2(*(F.Fp(c.limbs.reshape((n,) + tuple(inner) + (F.NLIMBS,)), c.bound, c.limb_bound)
                  for c in (view.c0, view.c1)))

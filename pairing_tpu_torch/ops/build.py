@@ -46,6 +46,7 @@ ENTRY_POINTS = {
     "pt_pow_ladder_stream": (_P, _P, _I, _P, _I, _P),
     "pt_fq12_slotwise": (_P, _P, _P, _P, _I, _P),
     "pt_fp_pow_bits": (_P, _P, _I, _I, _P, _I, _P),
+    "pt_fq2_inv": (_P, _P, _I, _P),
     "pt_fq12_inv": (_P, _P, _P, _I, _P),
     "pt_trajectory": (_P, _P, _I, _P, _P, _P, _I, _P),
     "pt_prefix_products": (_P, _I, _P, _P, _I, _P),

@@ -105,7 +105,7 @@ def _launch(kernel, q_arr: torch.Tensor, digits, with_steps: bool):
     tops = torch.empty((n, 6, NLIMBS, lanes), **opts) if with_steps else None
     dbls = torch.empty((n, 6, NLIMBS, lanes), **opts) if with_steps else None
     end = torch.empty((6, NLIMBS, lanes), **opts)
-    table = dispatch.bits_table(tuple(int(d) for d in digits), q_arr.device)
+    table = dispatch.device_table(tuple(int(d) for d in digits), q_arr.device)
     kernel(q_arr, table, n, tops, dbls, end, lanes)
     return tops, dbls, end
 

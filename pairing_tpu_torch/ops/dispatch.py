@@ -89,6 +89,7 @@ KERNELS = {
         ("pow_ladder_stream", "pt_pow_ladder_stream"),
         ("fq12_slotwise", "pt_fq12_slotwise"),
         ("fp_pow_bits", "pt_fp_pow_bits"),
+        ("fq2_inv", "pt_fq2_inv"),
         ("fq12_inv", "pt_fq12_inv"),
         ("trajectory", "pt_trajectory"),
         ("trajectory_end", "pt_trajectory"),
@@ -121,11 +122,14 @@ def launch_counts() -> dict:
 
 
 @lru_cache(maxsize=None)
-def bits_table(bits: tuple, device: torch.device) -> torch.Tensor:
-    """A kernel's digit or bit string (K12's bits, H's, K16's and K17's
-    digits), int32 [len(bits)] on ``device``: built once per (bits, device),
-    so a launch copies nothing from the host."""
-    return torch.as_tensor(np.asarray(bits, np.int32), device=device)
+def device_table(values: tuple, device: torch.device) -> torch.Tensor:
+    """A kernel's host constant as int32 on ``device``, of the shape of
+    ``values``: a digit or bit string (ints: H's, K12's, K16's and K17's
+    digits, F's exponent words), or a schedule (tuples of one length: C's
+    and D's steps, K's chord table). Built once per (values, device), so a
+    launch copies nothing from the host; every caller of a key shares the
+    tensor, and the kernels only read it."""
+    return torch.as_tensor(np.asarray(values, np.int32), device=device)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -28,7 +28,7 @@ from ..fields.fp import Fp
 from ..fields.fp2 import Fp2
 from ..utils.bn254 import BN_X, BN_X_NAF, P, get_wnaf
 from . import dispatch
-from .dispatch import bits_table
+from .dispatch import device_table
 from . import klayout as KL
 from .fq12_kernels import kf12_from, kf12_view
 
@@ -129,7 +129,7 @@ def miller_f(tg: torch.Tensor, ch: torch.Tensor, ep: torch.Tensor,
     dispatch.check_operand(ep, "ep", (ep.shape[0], 6), cols)
     if int(sched[sched[:, 0] == 1, 1].max(initial=0)) >= ch.shape[0]:
         raise ValueError("chord row out of range")
-    sched_t = torch.as_tensor(sched, device=tg.device)
+    sched_t = device_table(tuple(map(tuple, sched.tolist())), tg.device)
     opts = dict(dtype=torch.int32, device=tg.device)
     out = torch.empty((12, F.NLIMBS, lanes), **opts)
     fs = torch.empty((len(sched), 12, F.NLIMBS, lanes), **opts) if collect else None
@@ -177,7 +177,7 @@ def pow_ladder_stream(stream: torch.Tensor, digits, rows) -> torch.Tensor:
     lanes = stream.shape[-1]
     dispatch.check_operand(stream, "stream", (stream.shape[0], 12), lanes)
     sched = np.stack([(digits != 0).astype(np.int32), rows], axis=1)
-    sched_t = torch.as_tensor(sched, device=stream.device)
+    sched_t = device_table(tuple(map(tuple, sched.tolist())), stream.device)
     out = torch.empty(stream.shape[1:], dtype=torch.int32, device=stream.device)
     POW_LADDER_STREAM(stream, sched_t, len(digits), out, lanes)
     return out
@@ -253,7 +253,7 @@ def exp_bits_ladder(x: torch.Tensor, bits):
     lanes = x.shape[-1]
     dispatch.check_operand(x, "x", (12,), lanes)
     rows = torch.empty((len(bits),) + tuple(x.shape), dtype=torch.int32, device=x.device)
-    EXP_BITS(x, bits_table(tuple(bits.tolist()), x.device), len(bits), rows, lanes)
+    EXP_BITS(x, device_table(tuple(bits.tolist()), x.device), len(bits), rows, lanes)
     return rows[-1], rows
 
 
@@ -290,7 +290,7 @@ def pow_ladder(m: torch.Tensor, mc: torch.Tensor, digits) -> torch.Tensor:
     dispatch.check_operand(m, "m", (12,), lanes)
     dispatch.check_operand(mc, "mc", (12,), lanes)
     out = torch.empty_like(m)
-    POW_LADDER(m, mc, bits_table(tuple(digits.tolist()), m.device), len(digits), out, lanes)
+    POW_LADDER(m, mc, device_table(tuple(digits.tolist()), m.device), len(digits), out, lanes)
     return out
 
 
@@ -347,7 +347,7 @@ def pow_ladder_w4(m: torch.Tensor, digits=BN_X_W4_DIGITS) -> torch.Tensor:
     cols = -(-lanes // K17_BLOCK_LANES) * K17_BLOCK_LANES
     tab = torch.empty((3, 12, F.NLIMBS, cols), dtype=torch.int32, device=m.device)
     out = torch.empty_like(m)
-    POW_LADDER_W4(m, bits_table(tuple(digits.tolist()), m.device), len(digits), tab, cols, out,
+    POW_LADDER_W4(m, device_table(tuple(digits.tolist()), m.device), len(digits), tab, cols, out,
                   lanes)
     return out
 

@@ -18,7 +18,6 @@ and Q1 and through end + Q1 and -Q2, on K's chord (``k_epilogue_lines``,
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
@@ -48,15 +47,15 @@ def line_schedule(digits: Sequence[int], ch_rows: Sequence[int], n_ch: int) -> n
     return sched
 
 
-@lru_cache(maxsize=None)
-def chord_table(digits: tuple, ch_rows: tuple, n_ch: int, device: torch.device) -> torch.Tensor:
+def chord_table(digits, ch_rows, n_ch: int, device: torch.device) -> torch.Tensor:
     """The kernel's chord table, int32 [n_chords, 3] on ``device``: (step,
     digit, row) of each step with a nonzero digit, in step order: the rows
-    of ``line_schedule`` that have a chord, with their steps."""
+    of ``line_schedule`` that have a chord, with their steps; from
+    ``dispatch.device_table``, built once per table and device."""
     sched = line_schedule(digits, ch_rows, n_ch)
     steps = np.flatnonzero(sched[:, 0])
-    tab = np.column_stack([steps, sched[steps]]).astype(np.int32)
-    return torch.as_tensor(tab.reshape(-1, 3), device=device)
+    tab = np.column_stack([steps, sched[steps]])
+    return dispatch.device_table(tuple(map(tuple, tab.tolist())), device).reshape(-1, 3)
 
 
 def affine(state: torch.Tensor, zi: torch.Tensor):
@@ -106,7 +105,7 @@ def lines(tops, dbls, zinv, pq, digits: Sequence[int], ch_rows: Sequence[int], n
         raise ValueError("fewer trajectory or inverse rows than steps")
     if not dispatch.on_cuda(tops, dbls, zinv, pq):
         return lines_plain(tops, dbls, zinv, pq, line_schedule(digits, ch_rows, n_ch), n_ch)
-    chords = chord_table(tuple(map(int, digits)), tuple(map(int, ch_rows)), n_ch, tops.device)
+    chords = chord_table(digits, ch_rows, n_ch, tops.device)
     lanes = tops.shape[-1]
     dispatch.check_operand(tops, "tops", (tops.shape[0], 6), lanes)
     dispatch.check_operand(dbls, "dbls", (dbls.shape[0], 6), lanes)

@@ -12,8 +12,8 @@ lane ``k * B + b``. Every phase runs in the batch-last kernel layout
             doublings plus a mixed addition on each nonzero NAF digit;
   Phase N — one bulk normalization of the 130 states (64 loop tops, 64
             post-doubles, end, end + Q1): prefix products (kernel I), one
-            Fq2 inversion of the total (kernel F inside), running inverse
-            (kernel J);
+            Fq2 inversion of the total (``k_fq2_inv``, kernel F's chain
+            inside), running inverse (kernel J);
   Phase C — the 64 tangent and 25 chord lines with the affine conversion
             folded in (kernel K);
   Phase D — f-accumulation over the K * B line columns into B products
@@ -52,7 +52,7 @@ from ..ops import curve_kernels as CK
 from ..ops import fp_kernels as FPK
 from ..ops import line_kernels as LK
 from ..ops import norm_kernels as NK
-from ..ops.fq12_kernels import from_kernel_layout, kfp2_view, kstack
+from ..ops.fq12_kernels import from_kernel_layout, kstack
 from ..ops.fq2_vm import affine_export
 from ..ops.fused_kernels import miller_f
 from ..utils.interop import map_limbs, reshape_points
@@ -113,8 +113,7 @@ def _miller_core(qs: G2, ps: G1, collect: bool = False):
         with record_function("miller_loop.N_normalize.prefix"):
             prefix, total = NK.prefix_products(z)
         with record_function("miller_loop.N_normalize.inverse"):
-            tinv = F2.inv(kfp2_view(total), FPK.fp_inv)
-            tinv = kstack([tinv.c0, tinv.c1])
+            tinv = FPK.fp2_inv(total)
         with record_function("miller_loop.N_normalize.running"):
             zinv = NK.running_inverse(z, prefix, tinv)
 

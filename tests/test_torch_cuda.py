@@ -20,7 +20,7 @@ pytestmark = pytest.mark.cuda
 
 #: The kernels of ``pairing`` (one pair per lane), the main path.
 PAIRING_KERNELS = ("fq12_mul", "fq12_cyc_sq", "miller_f", "pow_ladder_stream", "fq12_slotwise",
-                   "fp_pow_bits", "fq12_inv", "trajectory", "prefix_products",
+                   "fq2_inv", "fq12_inv", "trajectory", "prefix_products",
                    "running_inverse", "lines", "epilogue_points", "epilogue_lines")
 
 
@@ -191,6 +191,70 @@ def test_fp_pow_bits_kernel_matches_plain(gen, lanes, e):
     assert bool((canon[:, 0] == 0).all())
     if lanes > 1:
         assert torch.equal(canon[:, 1], kf12_canonical(a)[:, 1])
+
+
+#: ``k_fq2_inv`` runs one lane a thread, 128 lanes a block: one lane, a
+#: ragged block, a ``groth16.b2048`` call's and a ``pairing()`` call's
+#: lanes, and the K = 4 path's lanes and three.
+FQ2_INV_LANE_COUNTS = [1, 33, 8192, 16384, 65539]
+
+
+@pytest.mark.parametrize("lanes", FQ2_INV_LANE_COUNTS)
+def test_fq2_inv_kernel_matches_field_library(gen, lanes):
+    """Phase N's Fq2 inverse on kernel G's edge lanes (zero, one = (R, 0),
+    settled limbs, values just below 2p) and random ones: equal to the field
+    library's inverse (``fp2_inv_plain``) on canonical values, below 2p
+    with settled limbs, zero staying zero and one one; one launch and no
+    synchronising copy."""
+    from pairing_tpu_torch.ops import fp_kernels as FPK
+    from pairing_tpu_torch.ops.fq12_kernels import kf12_canonical
+
+    a = fq12_inv_edge_operand(lanes, gen)[0:2].contiguous()
+    FPK.fp2_inv(a)  # the library is built and loaded before the sync check
+    before = FPK.FQ2_INV.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = FPK.fp2_inv(a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert FPK.FQ2_INV.launches == before + 1
+    assert_same(got, FPK.fp2_inv_plain(a))
+    canon = kf12_canonical(got)
+    assert bool((canon[..., 0] == 0).all())
+    if lanes > 1:
+        assert torch.equal(canon[..., 1], kf12_canonical(a)[..., 1])
+
+
+@pytest.mark.parametrize("lanes", [33, 2048])
+def test_c_and_d_cached_schedules_match_fresh_ones(gen, lanes):
+    """Kernels C and D launched by their wrappers, which take the schedule
+    from ``dispatch.device_table``, equal limb for limb to the same launch
+    with a schedule copied from the host for the call."""
+    from pairing_tpu_torch.ops import fused_kernels as FU
+    from pairing_tpu_torch.pairing import miller_loop as ML
+    from pairing_tpu_torch.pairing.final_exp import easy_part_k
+
+    tg = rand_kf12((ML.N_STEPS, 6), lanes, gen)
+    ch = rand_kf12((ML.N_ADDS, 6), lanes, gen)
+    ep = rand_kf12((2, 6), lanes, gen)
+    sched = FU.miller_schedule(ML.MILLER_FLAGS, ML.CHORD_ROWS)
+    got = FU.miller_f(tg, ch, ep, ML.MILLER_FLAGS, ML.CHORD_ROWS)
+    fresh = torch.empty_like(got)
+    FU.MILLER_F(tg, ch, ep, torch.as_tensor(sched, device="cuda"), len(sched), 1, fresh, 0,
+                lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fresh)
+
+    m = easy_part_k(rand_kf12((12,), lanes, gen))
+    digits = FU.BN_X_W4_DIGITS
+    stream, rows = FU.pow_x_table(m, digits)
+    got = FU.pow_ladder_stream(stream, digits, rows)
+    sched = np.stack([(digits != 0).astype(np.int32), rows], axis=1)
+    fresh = torch.empty_like(got)
+    FU.POW_LADDER_STREAM(stream, torch.as_tensor(sched, device="cuda"), len(digits), fresh,
+                         lanes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fresh)
 
 
 @pytest.mark.parametrize("lanes", [33, 1024])
@@ -417,7 +481,7 @@ def test_batch_to_affine_on_card_matches_cpu_route(gen):
         aff = TG2.batch_to_affine(TG2.G2Jac(*(kfp2_view(tops[:, i:i + 2]) for i in (0, 2, 4))))
         if dev == "cuda":
             counts = dispatch.launch_counts()
-            assert all(counts[k] == 1 for k in ("prefix_products", "fp_pow_bits",
+            assert all(counts[k] == 1 for k in ("prefix_products", "fq2_inv",
                                                 "running_inverse")), counts
         outs[dev] = [F2.fp2_to_ints(aff.x), F2.fp2_to_ints(aff.y)]
     assert outs["cuda"] == outs["cpu"]
@@ -1182,6 +1246,63 @@ def test_witness_stream_on_card_matches_one_shot(gen):
         for h, w in zip(host, want):
             assert h.shape == tuple(w.shape)
             np.testing.assert_array_equal(h, w.cpu().numpy())
+
+
+def _mod_p_rows(x: np.ndarray) -> list:
+    """A host leaf's values mod p: limb rows on its last axis (the public
+    layout) or on the one before (the kernel layout); other leaves as they
+    are."""
+    from pairing_tpu_torch.utils.bn254 import P
+
+    if x.shape[-1] != 21:
+        if x.ndim < 2 or x.shape[-2] != 21:
+            return x.tolist()
+        x = np.swapaxes(x, -1, -2)
+    return [sum(int(v) << (13 * i) for i, v in enumerate(row)) % P
+            for row in x.reshape(-1, 21)]
+
+
+@pytest.mark.parametrize("entry", ["pairing", "multi_pairing", "witness_stream"])
+def test_entries_with_fq2_inv_kernel_equal_plain_inverse(gen, monkeypatch, entry):
+    """``pairing``, ``multi_pairing`` and one ``witness_stream`` chunk with
+    Phase N's inverse on ``k_fq2_inv``, against the same call with its
+    plain version patched in: the GT values equal by value, the witness's
+    host arrays equal array for array on their values mod p (the kernel's
+    digits may differ by p from the field library's, and so every digit
+    downstream of the inverse)."""
+    import pairing_tpu_torch as pt
+    from pairing_tpu_torch.ops import dispatch
+    from pairing_tpu_torch.ops import fp_kernels as FPK
+    from pairing_tpu_torch.utils.interop import reshape_points
+    from pairing_tpu_torch.witness.stream import tensor_leaves, witness_stream
+
+    K, B = 2, 3
+    g1s, g2s = _seeded_points(K * B, 19)
+    p, q = pt.g1_from_ints(g1s, "cuda"), pt.g2_from_ints(g2s, "cuda")
+    if entry == "pairing":
+        def run():
+            return pt.fq12_to_int_coeffs(pt.pairing(p, q))
+    elif entry == "multi_pairing":
+        ps, qs = reshape_points(p, (K, B)), reshape_points(q, (K, B))
+
+        def run():
+            return pt.fq12_to_int_coeffs(pt.multi_pairing(ps, qs))
+    else:
+        def run():
+            (start, out, trace), = witness_stream(p, q, K * B)
+            return [_mod_p_rows(x) for x in tensor_leaves((out, trace), np.ndarray)]
+
+    dispatch.reset_launch_counts()
+    got = run()
+    assert dispatch.launch_counts()["fq2_inv"] == 1
+    monkeypatch.setattr(FPK, "fp2_inv", FPK.fp2_inv_plain)
+    dispatch.reset_launch_counts()
+    want = run()
+    counts = dispatch.launch_counts()
+    assert counts["fq2_inv"] == 0 and counts["fp_pow_bits"] == 1
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g == w
 
 
 @pytest.fixture(scope="module")

@@ -141,11 +141,11 @@ def test_operand_checks():
 def test_build_inputs():
     names = [p.name for p in build.sources()]
     assert names == ["affine_export.cu", "canonical.cu", "cyc_sq.cu", "exp_bits.cu", "fp_pow.cu",
-                     "fq12_inv.cu", "fq12_mul.cu", "fq12_sq.cu", "hard_chain.cu", "lines.cu",
-                     "miller_epilogue.cu", "miller_f.cu", "norm.cu", "pow_ladder.cu", "pow_naf.cu",
-                     "pow_w4.cu", "slotwise.cu", "trajectory.cu", "validate.cu", "canon.cuh",
-                     "field.cuh", "field32.cuh", "field_group.cuh", "fq12_terms.cuh", "lines.cuh",
-                     "slot_table.cuh", "trajectory.cuh"]
+                     "fq12_inv.cu", "fq12_mul.cu", "fq12_sq.cu", "fq2_inv.cu", "hard_chain.cu",
+                     "lines.cu", "miller_epilogue.cu", "miller_f.cu", "norm.cu", "pow_ladder.cu",
+                     "pow_naf.cu", "pow_w4.cu", "slotwise.cu", "trajectory.cu", "validate.cu",
+                     "canon.cuh", "field.cuh", "field32.cuh", "field_group.cuh", "fq12_terms.cuh",
+                     "lines.cuh", "slot_table.cuh", "trajectory.cuh"]
     assert len(build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert set(build.ENTRY_POINTS) == {k.entry for k in dispatch.KERNELS.values()}

@@ -469,10 +469,63 @@ def test_exp_bits_table_built_once():
     """The wrapper's device bits are built once per (bits, device)."""
     cpu = torch.device("cpu")
     bits = tuple(int(b) for b in FU.BN_X_BITS_MSB)
-    table = FU.bits_table(bits, cpu)
+    table = FU.device_table(bits, cpu)
     assert table.dtype == torch.int32 and table.tolist() == list(bits)
-    assert FU.bits_table(bits, cpu) is table
-    assert FU.bits_table((1, 0, 1), cpu) is not table
+    assert FU.device_table(bits, cpu) is table
+    assert FU.device_table((1, 0, 1), cpu) is not table
+
+
+def test_miller_f_and_stream_ladder_take_cached_schedules(monkeypatch):
+    """On the card path kernel C's and kernel D's (flag, row) schedules come
+    from ``device_table``, built once per (schedule, device): every launch
+    with one schedule gets the same tensor, equal to ``torch.as_tensor`` of
+    the schedule. The launches are recorded here in place of the kernels,
+    on CPU operands."""
+    from pairing_tpu_torch.pairing.miller_loop import CHORD_ROWS, MILLER_FLAGS, N_ADDS, N_STEPS
+
+    calls = []
+    monkeypatch.setattr(FU.dispatch, "on_cuda", lambda *ts: True)
+    for name in ("MILLER_F", "MILLER_F_MULTI", "MILLER_F_COLLECT", "POW_LADDER_STREAM"):
+        monkeypatch.setattr(FU, name, lambda *args, name=name: calls.append((name, args)))
+    stream = torch.zeros((4, 12, 21, 5), dtype=torch.int32)
+    digits = FU.BN_X_W4_DIGITS
+    rows = np.where(digits != 0, np.abs(digits) // 2, 0).astype(np.int32)
+    for lanes, n_pairs, collect in ((3, 1, False), (5, 2, False), (5, 1, True)):
+        cols = lanes * n_pairs
+        tg, ch, ep = (torch.zeros((n, 6, 21, cols), dtype=torch.int32)
+                      for n in (N_STEPS, N_ADDS, 2))
+        FU.miller_f(tg, ch, ep, MILLER_FLAGS, CHORD_ROWS, n_pairs, collect)
+        FU.pow_ladder_stream(stream, digits, rows)
+    cpu = torch.device("cpu")
+    sched_c = FU.miller_schedule(MILLER_FLAGS, CHORD_ROWS)
+    sched_d = np.stack([(digits != 0).astype(np.int32), rows], axis=1)
+    table_c = FU.device_table(tuple(map(tuple, sched_c.tolist())), cpu)
+    table_d = FU.device_table(tuple(map(tuple, sched_d.tolist())), cpu)
+    assert table_c.dtype == table_d.dtype == torch.int32
+    assert torch.equal(table_c, torch.as_tensor(sched_c))
+    assert torch.equal(table_d, torch.as_tensor(sched_d))
+    assert [name for name, _ in calls] == ["MILLER_F", "POW_LADDER_STREAM", "MILLER_F_MULTI",
+                                           "POW_LADDER_STREAM", "MILLER_F_COLLECT",
+                                           "POW_LADDER_STREAM"]
+    for name, args in calls:
+        if name == "POW_LADDER_STREAM":
+            assert args[1] is table_d and args[2] == len(digits)
+        else:
+            assert args[3] is table_c and args[4] == len(sched_c)
+
+
+def test_device_table_is_one_tensor_per_key():
+    """``dispatch.device_table``: the same tensor for a repeated key, another
+    for another key or device; int32 of the key's shape."""
+    from pairing_tpu_torch.ops import dispatch
+
+    cpu = torch.device("cpu")
+    key = ((0, 0), (1, 3), (2, 1))
+    table = dispatch.device_table(key, cpu)
+    assert table.dtype == torch.int32 and table.tolist() == [list(r) for r in key]
+    assert dispatch.device_table(((0, 0), (1, 3), (2, 1)), cpu) is table
+    assert dispatch.device_table(((0, 0), (1, 3), (2, 2)), cpu) is not table
+    assert dispatch.device_table((-1, 0, 1), cpu).tolist() == [-1, 0, 1]
 
 
 def _conj_by_ranks(a: Fq12) -> Fq12:
@@ -532,7 +585,7 @@ def test_pow_ladder_steps_by_ranks_match_plain(ladder, digits):
 
 def test_ladder_wrappers_take_cached_digits_and_size_k17_scratch(monkeypatch):
     """On the card path K16's and K17's digits, and kernel H's in both its
-    modes, come from ``bits_table``, built once per (digits, device), and
+    modes, come from ``device_table``, built once per (digits, device), and
     K17's scratch table spans whole blocks of K17_BLOCK_LANES: the launches
     are recorded here in place of the kernels, on CPU operands."""
     from pairing_tpu_torch.curves.g2 import SUBGROUP_DIGITS
@@ -553,8 +606,8 @@ def test_ladder_wrappers_take_cached_digits_and_size_k17_scratch(monkeypatch):
         CK.trajectory(q, STEP_DIGITS)
         CK.trajectory_end(q, SUBGROUP_DIGITS)
     cpu = torch.device("cpu")
-    miller_table = FU.bits_table(tuple(STEP_DIGITS), cpu)
-    sub_table = FU.bits_table(tuple(SUBGROUP_DIGITS), cpu)
+    miller_table = FU.device_table(tuple(STEP_DIGITS), cpu)
+    sub_table = FU.device_table(tuple(SUBGROUP_DIGITS), cpu)
     assert miller_table.tolist() == list(STEP_DIGITS)
     assert sub_table.tolist() == list(SUBGROUP_DIGITS)
     assert [kind for kind, _ in h_calls] == ["full", "end"] * 2
@@ -566,8 +619,8 @@ def test_ladder_wrappers_take_cached_digits_and_size_k17_scratch(monkeypatch):
         _, digits, n, tops, dbls, out, n_lanes = end
         assert digits is sub_table and n == len(SUBGROUP_DIGITS) and n_lanes == lanes
         assert tops is None and dbls is None and tuple(out.shape) == (6, 21, lanes)
-    naf_table = FU.bits_table(tuple(FU.BN_X_LADDER_DIGITS.tolist()), cpu)
-    w4_table = FU.bits_table(tuple(FU.BN_X_W4_DIGITS.tolist()), cpu)
+    naf_table = FU.device_table(tuple(FU.BN_X_LADDER_DIGITS.tolist()), cpu)
+    w4_table = FU.device_table(tuple(FU.BN_X_W4_DIGITS.tolist()), cpu)
     assert naf_table.tolist() == FU.BN_X_LADDER_DIGITS.tolist() and naf_table.min() == -1
     assert w4_table.tolist() == FU.BN_X_W4_DIGITS.tolist() and w4_table.min() == -7
     assert [kind for kind, _ in calls] == ["naf", "w4"] * 2

@@ -11,6 +11,13 @@ modelled in numpy and held against the field library and the oracle.
   ``tools/ig_variants.cu`` runs it), run with the field library's
   Montgomery product, must equal ``fields.fp.fp_pow_bits(x, P - 2)`` on
   canonical values, x = 0 included.
+* ``k_fq2_inv`` (``csrc/fq2_inv.cu``): the norm's two squares in one set of
+  columns with one reduction stay below 2^32, also at all-maximal digits
+  with every reduction multiplier at its largest; the whole kernel (norm,
+  the window chain, the two products, the second negated) must give
+  ``fp_kernels.fp2_inv_plain`` and the oracle's inverse on canonical
+  values, every output below 2p, zero for a zero lane and one for a one
+  lane; on CPU tensors ``fp2_inv`` is its plain version, limb for limb.
 * Kernel F's chain (``fp32_pow_w4``, the same window over any exponent's
   words, one word read a 32 bits), in exact Montgomery steps, must equal
   ``fp_kernels.fp_pow_bits_plain`` and the oracle for exponents from 1 to
@@ -69,15 +76,20 @@ def w32_mac(w, a, b) -> None:
         assert (w < COLUMN_LIMIT).all()
 
 
-def w32_sq(a) -> np.ndarray:
-    """field32.cuh's w32_sq: fresh columns of a^2, cross products against 2 a_i."""
+def w32_sq_mac(w, a) -> None:
+    """field32.cuh's w32_sq_mac: w += a^2, cross products against 2 a_i."""
     assert (a < TF.RADIX).all()
-    w = np.zeros((a.shape[0], 2 * NL), np.uint64)
     for i in range(NL):
         d = a[:, i:i + 1] << np.uint64(1)
         w[:, 2 * i + 1:i + NL] += d * a[:, i + 1:]
         w[:, 2 * i] += a[:, i] * a[:, i]
         assert (w < COLUMN_LIMIT).all()
+
+
+def w32_sq(a) -> np.ndarray:
+    """field32.cuh's w32_sq: fresh columns of a^2."""
+    w = np.zeros((a.shape[0], 2 * NL), np.uint64)
+    w32_sq_mac(w, a)
     return w
 
 
@@ -250,6 +262,81 @@ def test_kernel_f_window_chain_matches_plain_and_oracle(name):
     assert [g % c.P for g in got] == value(FK.kf12_canonical(want).T.numpy().astype(np.uint64))
     rinv = pow(R_MONT, -1, c.P)
     assert [g * rinv % c.P for g in got] == [pow(x * rinv % c.P, e, c.P) for x in xs]
+
+
+# ---------------------------------------------------------------------------
+# k_fq2_inv: Phase N's Fq2 inverse, one thread a lane
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["random", "two_p_minus_1", "all_max"])
+def test_fq2_inv_norm_columns_fit(kind):
+    """Two squares in one Wide32 (w32_sq_mac twice) and w32_reduce_imm's
+    terms: every column below 2^32, the reduction the exact Montgomery one
+    of c0^2 + c1^2 on field values."""
+    rng = np.random.default_rng({"random": 1151, "two_p_minus_1": 1152, "all_max": 1153}[kind])
+    c0, c1 = operand_digits(rng, kind, 16), operand_digits(rng, kind, 16)
+    w = np.zeros((16, 2 * NL), np.uint64)
+    w32_sq_mac(w, c0)
+    w32_sq_mac(w, c1)  # each column checked against 2^32 inside
+    assert np.array_equal(w, w32_sq(c0) + w32_sq(c1))
+    w32_reduce(w.copy(), m_max=True)  # every column below 2^32, asserted inside
+    if kind != "all_max":
+        got = w32_reduce(w)
+        assert value(got) == [exact_mont(u * u + v * v) for u, v in zip(value(c0), value(c1))]
+        assert all(v < 2 * c.P for v in value(got))
+
+
+def model_fq2_inv(c0: list, c1: list) -> tuple:
+    """k_fq2_inv on values below 2p in exact Montgomery steps: the norm, the
+    window chain over p - 2's words, c0 ninv and 2p - c1 ninv reduced below 2p."""
+    words, top = source_schedule()
+    mul = lambda u, v: exact_mont(u * v)  # noqa: E731
+    ninv = [chain_w4(exact_mont(u * u + v * v), words, top, mul) for u, v in zip(c0, c1)]
+    return ([mul(u, n) for u, n in zip(c0, ninv)],
+            [(2 * c.P - mul(v, n)) % (2 * c.P) for v, n in zip(c1, ninv)])
+
+
+def fq2_edge_total(lanes: int, seed: int) -> torch.Tensor:
+    """Fq2 rows [2, NL, lanes] in the (2p, settled) envelope: lane 0 zero,
+    lane 1 one (Montgomery R, 0), lane 2 values 2p - 1, the rest random."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    t = FK.random_kf12((2,), lanes, gen)
+    edges = [(0, 0), (R_MONT % c.P, 0), (2 * c.P - 1, 2 * c.P - 1)]
+    for lane, vals in enumerate(edges[:lanes]):
+        for k, v in enumerate(vals):
+            t[k, :, lane] = torch.as_tensor(TF.int_to_limbs(v))
+    return t
+
+
+def test_fq2_inv_kernel_model_matches_plain_and_oracle():
+    t = fq2_edge_total(7, 1161)
+    c0, c1 = (value(t[k].T.numpy().astype(np.int64)) for k in range(2))
+    g0, g1 = model_fq2_inv(c0, c1)
+    assert all(v < 2 * c.P for v in g0 + g1)
+    want = FK.kf12_canonical(FPK.fp2_inv_plain(t))  # [2, NL, lanes]
+    assert [[g % c.P for g in gs] for gs in (g0, g1)] == [
+        value(want[k].T.numpy().astype(np.uint64)) for k in range(2)]
+    rinv = pow(R_MONT, -1, c.P)
+    for lane, (u, v, x, y) in enumerate(zip(c0, c1, g0, g1)):
+        a = (u * rinv % c.P, v * rinv % c.P)
+        got = (x * rinv % c.P, y * rinv % c.P)
+        if lane == 0:
+            assert got == (0, 0)
+        else:
+            assert got == o.fq2_inv(a)
+    assert (g0[1] % c.P, g1[1] % c.P) == (R_MONT % c.P, 0)  # one stays one
+
+
+@pytest.mark.parametrize("lanes", [1, 33])
+def test_fp2_inv_on_cpu_is_the_field_library_inverse(lanes):
+    from pairing_tpu_torch.fields import fp2 as TF2
+    from pairing_tpu_torch.ops.fq12_kernels import kfp2_view, kstack
+
+    t = fq2_edge_total(lanes, 1170 + lanes)
+    inv = TF2.inv(kfp2_view(t), FPK.fp_inv)
+    assert torch.equal(FPK.fp2_inv(t), kstack([inv.c0, inv.c1]))
 
 
 # ---------------------------------------------------------------------------

@@ -20,10 +20,11 @@ a 2-chunk ``witness_stream``, each under the full profiler. Every kernel
 and every copy to or from pageable host memory must be launched inside a
 range of the program, and the pageable copies of each entry must number
 the synchronising operations that ``torch.cuda.set_sync_debug_mode("warn")``
-reports for it. Each call of the Miller loop's ``miller_loop.N_normalize.points``
-and ``miller_loop.C_lines.epilogue`` launches its one epilogue kernel
-(``k_epilogue_points``, ``k_epilogue_lines``), no other kernel and no
-pageable copy.
+reports for it; ``multi_pairing`` and ``pairing`` make none. Each call of
+the Miller loop's ``miller_loop.N_normalize.points``,
+``miller_loop.N_normalize.inverse`` and ``miller_loop.C_lines.epilogue``
+launches its one kernel (``k_epilogue_points``, ``k_fq2_inv``,
+``k_epilogue_lines``), no other kernel and no pageable copy.
 """
 
 import json
@@ -283,10 +284,12 @@ def test_cuda_every_launch_lies_in_a_program_range(card, entry):
     outside = [e["name"][:60] for e in kernels + pageable if not in_program(e)]
     assert not outside, outside
     assert len(pageable) == syncs, (len(pageable), syncs)
+    if entry in ("multi_pairing", "pairing"):  # no blocking copy left in a call
+        assert syncs == 0, [e["name"][:60] for e in pageable]
     if entry == "validate_inputs":
         return
-    # each epilogue range: one launch, of its kernel; no pageable copy
-    for name, kernel in EPILOGUE.items():
+    # each such range: one launch, of its kernel; no pageable copy
+    for name, kernel in ONE_KERNEL.items():
         calls = [(a, b) for n, a, b in spans if n == name]
         assert calls, name
         for a, b in calls:
@@ -296,9 +299,11 @@ def test_cuda_every_launch_lies_in_a_program_range(card, entry):
             assert names == [kernel], (name, [e["name"][:60] for e in inside])
 
 
-#: the Miller loop's epilogue ranges and the one kernel each launches
-EPILOGUE = {"miller_loop.N_normalize.points": "k_epilogue_points",
-            "miller_loop.C_lines.epilogue": "k_epilogue_lines"}
+#: the Miller loop's ranges of one kernel each: the epilogue points and
+#: lines, and Phase N's Fq2 inverse
+ONE_KERNEL = {"miller_loop.N_normalize.points": "k_epilogue_points",
+              "miller_loop.N_normalize.inverse": "k_fq2_inv",
+              "miller_loop.C_lines.epilogue": "k_epilogue_lines"}
 
 
 def _kernel_name(name: str):

@@ -76,7 +76,7 @@ def launcher(lib, q, digits, with_steps: bool):
     """A ctypes launch of pt_trajectory on ``q`` (storing or end-only), and
     its outputs."""
     lanes, n = q.shape[-1], len(digits)
-    table = dispatch.bits_table(tuple(digits), q.device)
+    table = dispatch.device_table(tuple(digits), q.device)
     opts = dict(dtype=torch.int32, device=q.device)
     tops = torch.empty((n, 6, 21, lanes), **opts) if with_steps else None
     dbls = torch.empty((n, 6, 21, lanes), **opts) if with_steps else None
