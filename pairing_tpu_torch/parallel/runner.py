@@ -14,7 +14,12 @@ each finished chunk to disk so a preempted run resumes where it left off:
     jitted pairing compiles once, and the port runs eagerly;
   * checkpoints are npz files that carry a digest of the chunk's inputs;
     resuming against different inputs raises instead of yielding stale
-    values;
+    values. Each is written to a temporary name in the checkpoint
+    directory and published under its final name by ``os.replace``, so a
+    file under a final name is always whole: a run killed mid-write leaves
+    at most a temporary file, which a resume ignores (it recomputes that
+    chunk). Nothing is fsynced: a checkpoint outlives the process, not a
+    crash of the host;
   * ``config.mesh_shape`` / ``mesh_axes`` shard each chunk's batch axis over
     the first axis of a ``torch.distributed`` mesh (P2 data parallelism):
     every rank pairs its contiguous share, the canonical limbs are
@@ -23,6 +28,14 @@ each finished chunk to disk so a preempted run resumes where it left off:
     whole chunk. Only rank 0 writes a checkpoint, then all ranks meet at a
     barrier; on resume every rank reads it, so the directory must be one
     that every rank sees.
+
+Each step of a chunk is a ``torch.profiler.record_function`` range: a
+computed chunk is ``stream.chunk``, holding in turn ``stream.encode`` (the
+points from Python ints to the device), ``pairing.pairing`` (the entry's
+own), ``stream.canonical`` (the canonical export), ``stream.to_host`` (the
+copy to host memory, and the mesh branch's all-gather), ``stream.digest``
+and ``stream.checkpoint``; a chunk read back from its checkpoint is
+``stream.resume`` (the load and its digest check).
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from typing import Iterator, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from ..curves.g1 import g1_from_ints
 from ..curves.g2 import g2_from_ints
@@ -85,42 +99,68 @@ def pairing_stream(
     for idx, start in enumerate(range(0, n, cs)):
         g1_chunk = list(g1_points[start : start + cs])
         g2_chunk = list(g2_points[start : start + cs])
-        if config.checkpoint_dir:
-            path = _chunk_path(config.checkpoint_dir, idx)
-            if os.path.exists(path):
-                with np.load(path) as z:
-                    if str(z["digest"]) != _digest(g1_chunk, g2_chunk):
-                        raise ValueError(
-                            f"checkpoint {path} was computed from different "
-                            "inputs; refusing to resume"
-                        )
-                    yield z["limbs"]
-                continue
-        limbs = pair(g1_chunk, g2_chunk)
-        if config.checkpoint_dir:
-            if writer:
-                np.savez(
-                    _chunk_path(config.checkpoint_dir, idx),
-                    limbs=limbs,
-                    digest=np.str_(_digest(g1_chunk, g2_chunk)),
-                )
-            if sharded:
-                dist.barrier()
+        path = _chunk_path(config.checkpoint_dir, idx) if config.checkpoint_dir else None
+        if path and os.path.exists(path):
+            with record_function("stream.resume"):
+                limbs = _resume(path, g1_chunk, g2_chunk)
+            yield limbs
+            continue
+        with record_function("stream.chunk"):
+            limbs = pair(g1_chunk, g2_chunk)
+            if path:
+                with record_function("stream.digest"):
+                    digest = _digest(g1_chunk, g2_chunk) if writer else None
+                with record_function("stream.checkpoint"):
+                    if writer:
+                        _publish(path, limbs, digest)
+                    if sharded:
+                        dist.barrier()
         yield limbs
+
+
+def _resume(path: str, g1_chunk, g2_chunk) -> np.ndarray:
+    """The limbs of the checkpoint at ``path``, refused unless it was
+    computed from these inputs."""
+    with np.load(path) as z:
+        if str(z["digest"]) != _digest(g1_chunk, g2_chunk):
+            raise ValueError(
+                f"checkpoint {path} was computed from different "
+                "inputs; refusing to resume"
+            )
+        return z["limbs"]
+
+
+def _publish(path: str, limbs: np.ndarray, digest: str) -> None:
+    """Write the checkpoint to a temporary name of this process beside
+    ``path`` (through an open file, so ``np.savez`` adds no suffix), then
+    rename it to ``path``."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, limbs=limbs, digest=np.str_(digest))
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):  # the write or the rename failed
+            os.unlink(tmp)
 
 
 def _canonical_pairing(g1_chunk, g2_chunk, device) -> torch.Tensor:
     """Canonical limbs [m, 12, NLIMBS] of the chunk's pairings on ``device``."""
-    p = g1_from_ints(g1_chunk, device)
-    q = g2_from_ints(g2_chunk, device)
-    return F12.fq12_to_canonical_limbs(api.pairing(p, q))
+    with record_function("stream.encode"):
+        p = g1_from_ints(g1_chunk, device)
+        q = g2_from_ints(g2_chunk, device)
+    out = api.pairing(p, q)
+    with record_function("stream.canonical"):
+        return F12.fq12_to_canonical_limbs(out)
 
 
 def _host_pairing(device: str):
     """The per-chunk function without a mesh: the whole chunk on ``device``,
     one bulk copy of its canonical limbs to the host."""
     def pair(g1_chunk, g2_chunk) -> np.ndarray:
-        return _canonical_pairing(g1_chunk, g2_chunk, device).cpu().numpy()
+        limbs = _canonical_pairing(g1_chunk, g2_chunk, device)
+        with record_function("stream.to_host"):
+            return limbs.cpu().numpy()
 
     return pair
 
@@ -142,12 +182,15 @@ def _sharded_pairing(config: PairingConfig):
         m = len(g1_chunk)
         share = -(-m // size)
         lo, hi = min(me * share, m), min((me + 1) * share, m)
-        mine = torch.zeros((share, 12, NLIMBS), dtype=torch.int32, device=wire)
+        limbs = None
         if hi > lo:  # the ragged tail leaves the last ranks no lanes
-            mine[: hi - lo] = _canonical_pairing(g1_chunk[lo:hi], g2_chunk[lo:hi],
-                                                 config.device).to(wire)
-        parts = [torch.empty_like(mine) for _ in range(size)]
-        dist.all_gather(parts, mine, group=group)
-        return torch.cat(parts)[:m].cpu().numpy()
+            limbs = _canonical_pairing(g1_chunk[lo:hi], g2_chunk[lo:hi], config.device)
+        with record_function("stream.to_host"):
+            mine = torch.zeros((share, 12, NLIMBS), dtype=torch.int32, device=wire)
+            if limbs is not None:
+                mine[: hi - lo] = limbs.to(wire)
+            parts = [torch.empty_like(mine) for _ in range(size)]
+            dist.all_gather(parts, mine, group=group)
+            return torch.cat(parts)[:m].cpu().numpy()
 
     return pair

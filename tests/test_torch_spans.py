@@ -2,23 +2,26 @@
 each entry, and how they nest.
 
 On the CPU (one parametrised test): ``validate_inputs`` and ``pairing`` on
-one point pair, ``multi_pairing`` with K = 2 and batch 1, and
-``witness_stream`` with a cheap ``fn`` over 2 lanes in chunks of 1. Each
+one point pair, ``multi_pairing`` with K = 2 and batch 1,
+``witness_stream`` with a cheap ``fn`` over 2 lanes in chunks of 1, and
+``pairing_stream`` over one pair, checkpointed, then run again over its
+checkpoint (the rerun opens ``stream.resume`` alone). Each
 runs under the profiler with only the ``record_function`` scope recorded
 (the plain versions of the kernels make hundreds of thousands of tensor
 operations, which a full profile would record one by one); every range of
 the entry's path must appear with the parent range it has in the program,
 and no other range. The CPU branch of the stream has no wait, so
-``witness.stream.wait`` is asserted only on the card. About 30 s on two
+``witness.stream.wait`` is asserted only on the card. About 45 s on two
 threads.
 
 Marked ``cuda`` (skips without a card; from the repository root on a
 machine with the card, ``python -m pytest --noconftest
 tests/test_torch_spans.py -q -k cuda``): ``validate_inputs`` and
-``multi_pairing`` at 256 products of 4 pairs, ``pairing`` at 256 lanes and
-a 2-chunk ``witness_stream``, each under the full profiler. Every kernel
-and every copy to or from pageable host memory must be launched inside a
-range of the program, and the pageable copies of each entry must number
+``multi_pairing`` at 256 products of 4 pairs, ``pairing`` at 256 lanes, a
+2-chunk ``witness_stream`` and a 2-chunk checkpointed ``pairing_stream``
+from Python ints, each under the full profiler. Every kernel and every
+copy to or from pageable host memory must be launched inside a range of
+the program (``stream.*`` among them), and the pageable copies of each entry must number
 the synchronising operations that ``torch.cuda.set_sync_debug_mode("warn")``
 reports for it; ``multi_pairing`` and ``pairing`` make none. Each call of
 the Miller loop's ``miller_loop.N_normalize.points``,
@@ -38,7 +41,9 @@ import torch
 
 import pairing_tpu_torch as pt
 from pairing_tpu_torch.oracle import native as o
+from pairing_tpu_torch.parallel.runner import pairing_stream
 from pairing_tpu_torch.utils import bn254 as c
+from pairing_tpu_torch.utils.config import PairingConfig
 from pairing_tpu_torch.utils.interop import map_limbs, reshape_points
 from pairing_tpu_torch.witness.stream import witness_stream
 
@@ -46,7 +51,7 @@ torch.set_num_threads(2)
 
 G2GEN = (c.G2_GEN_X, c.G2_GEN_Y)
 #: the names of the program's ranges start with these
-PROGRAM = ("pairing.", "validate.", "miller_loop.", "final_exp.", "witness.")
+PROGRAM = ("pairing.", "validate.", "miller_loop.", "final_exp.", "witness.", "stream.")
 
 #: each range of an entry's path and the range it lies directly inside
 VALIDATE = {
@@ -105,6 +110,30 @@ def witness_path() -> dict:
     path.update({"witness.stream.copy_out": None, "witness.stream.wait": None,
                  "witness.stream.handover": None})
     return path
+
+
+def pairing_stream_path() -> dict:
+    """A chunk of ``pairing_stream`` computed and checkpointed: its six
+    steps inside ``stream.chunk``, the pairing's own ranges inside
+    ``pairing.pairing``; and a chunk read back from its checkpoint."""
+    path = {"stream.chunk": None, "stream.resume": None}
+    path.update({name: "stream.chunk" for name in (
+        "stream.encode", "stream.canonical", "stream.to_host", "stream.digest",
+        "stream.checkpoint")})
+    path.update(pairing_path("pairing.pairing"))
+    path["pairing.pairing"] = "stream.chunk"
+    return path
+
+
+def _stream_twice(g1, g2, chunk: int, device) -> None:
+    """``pairing_stream`` over the ints ``g1``, ``g2`` into a new checkpoint
+    directory, then again over it: every chunk computed, then every chunk
+    resumed."""
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = PairingConfig(device=device, chunk_size=chunk, checkpoint_dir=ckpt)
+        first = list(pairing_stream(g1, g2, cfg))
+        again = list(pairing_stream(g1, g2, cfg))
+    assert [a.tolist() for a in again] == [a.tolist() for a in first]
 
 
 def parents(ranges):
@@ -185,8 +214,14 @@ def _stream_case():
     return run, {"witness.stream.copy_out": None, "witness.stream.handover": None}
 
 
+def _pairing_stream_case():
+    g1, g2 = [c.G1_GEN], [G2GEN]
+    return lambda: _stream_twice(g1, g2, 1, "cpu"), pairing_stream_path()
+
+
 CPU_CASES = {"validate_inputs": _validate_case, "pairing": _pairing_case,
-             "multi_pairing": _multi_pairing_case, "witness_stream": _stream_case}
+             "multi_pairing": _multi_pairing_case, "witness_stream": _stream_case,
+             "pairing_stream": _pairing_stream_case}
 
 
 @pytest.mark.parametrize("case", sorted(CPU_CASES))
@@ -197,6 +232,10 @@ def test_ranges_nest_as_the_program_opens_them(case):
     if case == "witness_stream":  # two chunks, each copied and handed over once
         assert sorted(n for n, _, _ in ranges) == ["witness.stream.copy_out"] * 2 + [
             "witness.stream.handover"] * 2
+    if case == "pairing_stream":  # the chunk computed once; the rerun only resumes
+        tops = sorted((a, n) for n, a, _ in ranges if n in ("stream.chunk", "stream.resume"))
+        assert [n for _, n in tops] == ["stream.chunk", "stream.resume"]
+        assert [n for n, a, _ in ranges if a >= tops[1][0]] == ["stream.resume"]
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +260,8 @@ def card():
     ps = reshape_points(lanes(p, products * pairs), (pairs, products))
     qs = reshape_points(lanes(q, products * pairs), (pairs, products))
     pw, qw = lanes(p, 2 * chunk), lanes(q, 2 * chunk)
+    g1 = [o.g1_mul(c.G1_GEN, k % 8 + 1) for k in range(2 * chunk)]
+    g2 = [o.g2_mul(G2GEN, 2 * (k % 8) + 1) for k in range(2 * chunk)]
     p1, q1 = map_limbs(ps, lambda t: t[0]), map_limbs(qs, lambda t: t[0])
     entries = {
         "validate_inputs": (lambda: pt.validate_inputs(p1, q1), VALIDATE),
@@ -228,6 +269,7 @@ def card():
         "pairing": (lambda: pt.pairing(p1, q1), pairing_path("pairing.pairing")),
         "witness_stream": (lambda: [s for s, _, _ in witness_stream(pw, qw, chunk)],
                            witness_path()),
+        "pairing_stream": (lambda: _stream_twice(g1, g2, chunk, "cuda"), pairing_stream_path()),
     }
     for fn, _ in entries.values():  # build the kernels, warm every shape
         fn()
@@ -262,7 +304,7 @@ def profile_on_card(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["validate_inputs", "multi_pairing", "pairing",
-                                   "witness_stream"])
+                                   "witness_stream", "pairing_stream"])
 def test_cuda_every_launch_lies_in_a_program_range(card, entry):
     fn, want = card[entry]
     events, syncs = profile_on_card(fn)
